@@ -364,6 +364,20 @@ def test_interop_round_trip(rng):
                                                   migrate_capacity=4))
 
 
+@pytest.mark.parametrize("field", [dict(slack=0), dict(reserve_bins=1),
+                                   dict(recenter=False),
+                                   dict(migrate_capacity=4)])
+def test_config_from_jax_rejects_unported(field):
+    """The port fixes slack 1, no reserve bins and recentering, and has no
+    incremental rebin; the TPU-only restructurings convert silently."""
+    with pytest.raises(NotImplementedError):
+        interop.config_from_jax(jb2.BinnedConfig2(bins_capacity=8, **field))
+    cfg = interop.config_from_jax(jb2.BinnedConfig2(
+        bins_capacity=8, block_capacity=64, chunk_bins=4, sort_chunk=2,
+        use_segments=True))
+    assert cfg == tb2.BinnedConfig2(bins_capacity=8, block_capacity=64)
+
+
 def test_tf32_off():
     assert zpc_tpu_torch.__name__ == "zpc_tpu_torch"
     assert torch.backends.cuda.matmul.allow_tf32 is False

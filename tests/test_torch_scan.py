@@ -142,6 +142,16 @@ def test_primitives_empty():
     assert tprim.exclusive_scan(e, "max").numel() == 0
 
 
+@pytest.mark.parametrize("op,lead", [("max", -np.inf), ("min", np.inf)])
+def test_plain_scan_infinite_lead(op, lead):
+    """A max (min) scan over leading -inf (+inf) stays infinite there: the
+    float identity is +-inf, not +-FLT_MAX."""
+    x = np.asarray([lead, lead, 1.5, -2.0, lead], np.float32)
+    got = tscan.scan(_to_torch(x), op).numpy()
+    np.testing.assert_array_equal(got, _numpy_scan(x, op, False))
+    assert got[0] == got[1] == lead
+
+
 def test_plain_version_does_not_count_launches():
     before = tscan.LAUNCHES
     tscan.scan(torch.arange(10, dtype=torch.int32))
@@ -163,3 +173,12 @@ def test_kernel_matches_plain_on_cuda(dtype, op, exclusive):
         _check(got.cpu().numpy(), tscan.scan_reference(x, op,
                                                        exclusive).numpy(),
                dtype)
+    if dtype == "float32" and op != "add":
+        # leading identities across a tile boundary: +-inf must survive
+        lead = -np.inf if op == "max" else np.inf
+        x = _to_torch(_input(dtype, 5000, seed=1))
+        x[:3000] = lead
+        got = tscan.scan(x.cuda(), op).cpu()
+        np.testing.assert_array_equal(got.numpy(),
+                                      tscan.scan_reference(x, op).numpy())
+        assert got[2999] == lead

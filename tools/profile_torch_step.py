@@ -1,0 +1,86 @@
+"""Device-time profile of the port's main path on one NVIDIA GPU.
+
+Run from the repository root:  python3 tools/profile_torch_step.py
+
+Builds the 262,144-particle elastic block (dx = 1/128) with
+BinnedConfig2(bins_capacity=2560, block_capacity=2048), warms up, then
+traces 10 steps of explicit_step_binned2 and one rebin_adaptive with
+torch.profiler.  Prints the card's name and power limit, the wall time and
+device time of the window (so the device's busy share), and the ops with
+the most device time (each op's own kernels); the full table goes to
+chiprun_out/profile_torch_step.txt.
+"""
+
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import ProfilerActivity, profile  # noqa: E402
+
+import zpc_tpu_torch  # noqa: E402
+from zpc_tpu_torch import scenes  # noqa: E402
+from zpc_tpu_torch.sim import mpm_binned2 as b2  # noqa: E402
+
+N, DX, STEPS = 262_144, 1.0 / 128, 10
+CFG = b2.BinnedConfig2(bins_capacity=2560, block_capacity=2048)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise RuntimeError("this probe needs an NVIDIA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    dev = zpc_tpu_torch.cuda_device(0)
+    sim, st, dt = scenes.mpm_block(N, DX, dev)
+    bst = b2.bin_state(sim, st, CFG)
+
+    def window(s):
+        for _ in range(STEPS):
+            s = b2.explicit_step_binned2(sim, s, dt, CFG, rebin=False)
+            bool(s.needs_rebin)
+        return b2.rebin_adaptive(sim, s, CFG)
+
+    window(bst)                                  # warm-up and build
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        window(bst)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+    # kernels (device events) sum to the device time; each host op's self
+    # device time is that of the kernels it launched
+    device_us = sum(e.self_device_time_total for e in ev
+                    if e.device_type == DeviceType.CUDA)
+    if device_us <= 0:
+        raise RuntimeError("the profiler saw no device time: time with "
+                           "CUDA events instead")
+    ops = [e for e in ev if e.device_type == DeviceType.CPU]
+    print(f"{STEPS} steps + 1 rebin: wall {wall * 1e3:.4f} ms, device "
+          f"{device_us / 1e3:.4f} ms, busy share "
+          f"{device_us / 1e3 / (wall * 1e3):.4f} ({card})", flush=True)
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:15]:
+        if e.self_device_time_total <= 0:
+            break
+        print(f"  {e.key[:60]:60s} {e.self_device_time_total / 1e3:10.4f} ms"
+              f" {100 * e.self_device_time_total / device_us:6.2f}%"
+              f" x{e.count}", flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out",
+                           "profile_torch_step.txt"), "w") as f:
+        f.write(card + "\n")
+        f.write(ev.table(sort_by="self_device_time_total", row_limit=60))
+
+
+if __name__ == "__main__":
+    main()

@@ -28,8 +28,8 @@
 
 #include <cuda_runtime.h>
 
-#include <cfloat>
 #include <climits>
+#include <cmath>
 #include <cstdint>
 
 namespace {
@@ -53,9 +53,11 @@ template <> struct Limits<uint32_t> {
   __device__ static uint32_t lowest() { return 0u; }
   __device__ static uint32_t highest() { return UINT_MAX; }
 };
+// +-inf, not +-FLT_MAX: a max scan over leading -inf stays -inf, as
+// torch.cummax does
 template <> struct Limits<float> {
-  __device__ static float lowest() { return -FLT_MAX; }
-  __device__ static float highest() { return FLT_MAX; }
+  __device__ static float lowest() { return -INFINITY; }
+  __device__ static float highest() { return INFINITY; }
 };
 
 template <typename T> struct Add {
@@ -241,12 +243,11 @@ extern "C" {
 int zpc_scan_tile() { return kTile; }
 
 // dtype: 0 int32, 1 uint32, 2 float32.  op: 0 add, 1 max, 2 min.
-// Returns a cudaError_t: 0 when every launch was accepted.
+// Launches on the caller's current device, which must hold x, out, partial
+// and stream.  Returns a cudaError_t: 0 when every launch was accepted.
 int zpc_scan(const void* x, void* out, void* partial, long long n, int dtype,
-             int op, int exclusive, int device, void* stream) {
+             int op, int exclusive, void* stream) {
   if (n < 1) return cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_op<int32_t>(op, x, out, partial, n, exclusive, s);

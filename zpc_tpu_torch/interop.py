@@ -65,15 +65,19 @@ def sim_from_jax(sim, device: torch.device) -> MPMSim:
 def config_from_jax(cfg) -> BinnedConfig2:
     """``zpc_tpu`` ``BinnedConfig2`` -> the port's.  ``chunk_bins``,
     ``sort_chunk`` and ``use_segments`` only restructure the TPU
-    computation, so they are dropped; the incremental rebin is not
-    ported."""
+    computation, so they are dropped.  The port fixes slack 1, no reserve
+    bins and recentering, and has no incremental rebin: other values
+    raise."""
     if cfg.migrate_capacity:
         raise NotImplementedError("the incremental rebin "
                                   "(migrate_capacity > 0) is not ported")
+    if cfg.slack != 1 or cfg.reserve_bins or not cfg.recenter:
+        raise NotImplementedError(
+            "only slack=1, reserve_bins=0 and recenter=True are ported, got "
+            f"slack={cfg.slack}, reserve_bins={cfg.reserve_bins}, "
+            f"recenter={cfg.recenter}")
     return BinnedConfig2(bins_capacity=cfg.bins_capacity,
-                         block_capacity=cfg.block_capacity, slack=cfg.slack,
-                         reserve_bins=cfg.reserve_bins,
-                         recenter=cfg.recenter)
+                         block_capacity=cfg.block_capacity)
 
 
 def _grid_from_jax(grid, device) -> SparseGrid:

@@ -73,8 +73,7 @@ def _library() -> ctypes.CDLL:
     lib.zpc_scan_tile.restype = ctypes.c_int
     lib.zpc_scan.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_void_p]
+                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.zpc_scan.restype = ctypes.c_int
     return lib
 
@@ -106,11 +105,12 @@ def scan(x: torch.Tensor, op: str = "add",
     out = torch.empty_like(x)
     partial = torch.empty((tiles if tiles > 1 else 0,), dtype=x.dtype,
                           device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.zpc_scan(x.data_ptr(), out.data_ptr(),
-                       partial.data_ptr() if tiles > 1 else None, n,
-                       _DTYPE[x.dtype], _OPCODE[op], int(exclusive),
-                       x.device.index or 0, stream)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.zpc_scan(x.data_ptr(), out.data_ptr(),
+                           partial.data_ptr() if tiles > 1 else None, n,
+                           _DTYPE[x.dtype], _OPCODE[op], int(exclusive),
+                           stream)
     if err != 0:
         raise RuntimeError(f"scan kernel launch failed: cudaError_t {err}")
     LAUNCHES += 1

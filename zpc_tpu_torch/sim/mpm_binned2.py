@@ -12,8 +12,8 @@ stencil bases sit at window offsets [1, 4] of an 8-node window that spans
 its block and the next one on each axis, so a particle can drift a cell
 either way before it leaves the window.  The step flags ``needs_rebin``
 when one has; :func:`adaptive_chain` then re-sorts (:func:`rebin_adaptive`)
-before the next step.  With recentering on, the grid origin follows the
-bulk integer drift, so pure translation never forces a rebin.
+before the next step.  The grid origin follows the bulk integer drift
+(recentering), so pure translation never forces a rebin.
 
 The rebin's prefix sums go through
 :func:`zpc_tpu_torch.parallel.primitives.inclusive_scan`, which launches the
@@ -28,7 +28,8 @@ accumulator whose last row takes whatever falls outside; G2P gathers back.
 Not ported (TPU workarounds, see ROADMAP.md): ``chunk_bins`` (the chunked
 transfer is physics-identical to the unchunked one), ``sort_chunk``,
 ``use_segments`` and the one-hot spill selection, the spill tables for
-slack 0, and the incremental rebin (``migrate_capacity``).
+slack 0, ``reserve_bins``, ``recenter=False`` and the incremental rebin
+(``migrate_capacity``).
 """
 
 from __future__ import annotations
@@ -52,24 +53,19 @@ __all__ = ["K", "BinnedConfig2", "BinState", "bin_state", "unbin_state",
            "rollout_binned2"]
 
 K = 128                      # lanes per bin
+SLACK = 1                    # drift slack in cells
+SIDE = 6 + 2 * SLACK         # window side in nodes
 
 
 @dataclasses.dataclass(frozen=True)
 class BinnedConfig2:
+    """Drift slack 1 (:data:`SLACK`), no reserve bins and recentering are
+    fixed in the port; :func:`zpc_tpu_torch.interop.config_from_jax`
+    rejects a JAX config that sets them otherwise."""
+
     bins_capacity: int                    # static bin count (L = bins * K)
     block_capacity: Optional[int] = None  # dilated table capacity (None:
                                           # the grid's)
-    slack: int = 1                        # drift slack in cells
-    reserve_bins: int = 0                 # extra all-dummy bins per block
-    recenter: bool = True                 # grid origin follows bulk drift
-
-    def __post_init__(self):
-        if self.slack != 1:
-            raise ValueError("only slack=1 (the 8-node window) is ported")
-
-    @property
-    def side(self) -> int:
-        return 6 + 2 * self.slack
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,11 +109,11 @@ def _col_layout(dim: int) -> dict:
 
 
 def _bin_keys(x: torch.Tensor, alive: torch.Tensor, grid: SparseGrid,
-              cfg: BinnedConfig2, order: int) -> torch.Tensor:
+              order: int) -> torch.Tensor:
     """Block key of each lane's slack-shifted stencil base, or the
     sentinel for dead lanes."""
     base, _, _ = bspline_weights((x - grid.origin) / grid.dx, order)
-    blk = torch.div(base - cfg.slack, 4, rounding_mode="floor")
+    blk = torch.div(base - SLACK, 4, rounding_mode="floor")
     return torch.where(alive, pack_coords(blk), KEY_SENTINEL)
 
 
@@ -134,7 +130,7 @@ def bin_state(sim: MPMSim, state: MPMState, cfg: BinnedConfig2) -> BinState:
     cols = _pack_cols(p, pmask)
     pid = torch.where(pmask, torch.arange(N, dtype=torch.int32,
                                           device=pmask.device), -1)
-    keys = _bin_keys(p["x"], pmask, grid, cfg, sim.order)
+    keys = _bin_keys(p["x"], pmask, grid, sim.order)
     nb = cfg.block_capacity or grid.block_capacity
     st = _sort_into_bins(keys, cols, pid, cfg, nb)
     return dataclasses.replace(
@@ -228,7 +224,7 @@ def _sort_into_bins(keys: torch.Tensor, cols: torch.Tensor, pid: torch.Tensor,
 
     skey = torch.sort(keys).values
     gkeys, gvalid, counts, n_groups = _groups(skey, nbq)
-    pads = torch.where(gvalid, (-counts) % K + cfg.reserve_bins * K, 0)
+    pads = torch.where(gvalid, (-counts) % K, 0)
     total = (counts + pads).sum()
     padcum = inclusive_scan(pads.to(torch.int32))
     # overflow also fires when the dummies needed exceed the npad budget:
@@ -279,7 +275,7 @@ def _dummy_keys_by_rank(gkeys, gvalid, pads, padcum, size: int):
 def _rebin(sim: MPMSim, st: BinState, cfg: BinnedConfig2) -> BinState:
     """Re-sort a BinState into fresh bins (bin order in and out)."""
     grid = st.grid
-    keys = _bin_keys(st.cols[:, 0:3], st.pid >= 0, grid, cfg, sim.order)
+    keys = _bin_keys(st.cols[:, 0:3], st.pid >= 0, grid, sim.order)
     nb = cfg.block_capacity or grid.block_capacity
     nst = _sort_into_bins_from_lanes(keys, st.cols, st.pid, cfg, nb)
     return dataclasses.replace(
@@ -297,7 +293,7 @@ def _sort_into_bins_from_lanes(keys, cols, pid, cfg: BinnedConfig2,
         raise ValueError(f"{L} lanes do not match bins_capacity={nbq}")
     skey = torch.sort(keys).values
     gkeys, gvalid, counts, n_groups = _groups(skey, nbq)
-    pads = torch.where(gvalid, (-counts) % K + cfg.reserve_bins * K, 0)
+    pads = torch.where(gvalid, (-counts) % K, 0)
     overflow = ((counts + pads).sum() > L) | (n_groups > nbq)
 
     # the j-th dead lane (in lane order) pads the group whose cumulative
@@ -376,7 +372,7 @@ def explicit_step_binned2(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
     origin = grid.origin
     B = cfg.bins_capacity
     L = B * K
-    side = cfg.side
+    side = SIDE
     f32 = torch.float32
 
     cols = st.cols
@@ -454,20 +450,18 @@ def explicit_step_binned2(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
     # escape check against the frozen window, after recentering
     base_new = torch.floor((x_new - origin) / dx - 0.5).to(torch.int32)
     off_new = base_new - borigin_l
-    if cfg.recenter:
-        # follow the bulk integer drift so the next step's bases stay
-        # centred in their windows (the grid is rebuilt every step, so
-        # moving its origin between steps is free)
-        asum = alive.sum().clamp_min(1)
-        mean_off = torch.where(alive[:, None], off_new, 0).sum(0).to(f32) \
-            / asum
-        shift = torch.clamp(torch.round(mean_off - 0.5 * (side - 3)),
-                            -1.0, 1.0).to(torch.int32)
-        off_new = off_new - shift
-        tm = grid.transform.matrix.clone()
-        tm[:3, 3] += shift.to(f32) * dx
-        grid = dataclasses.replace(
-            grid, transform=dataclasses.replace(grid.transform, matrix=tm))
+    # recentering: follow the bulk integer drift so the next step's bases
+    # stay centred in their windows (the grid is rebuilt every step, so
+    # moving its origin between steps is free)
+    asum = alive.sum().clamp_min(1)
+    mean_off = torch.where(alive[:, None], off_new, 0).sum(0).to(f32) / asum
+    shift = torch.clamp(torch.round(mean_off - 0.5 * (side - 3)),
+                        -1.0, 1.0).to(torch.int32)
+    off_new = off_new - shift
+    tm = grid.transform.matrix.clone()
+    tm[:3, 3] += shift.to(f32) * dx
+    grid = dataclasses.replace(
+        grid, transform=dataclasses.replace(grid.transform, matrix=tm))
     escaped = (alive[:, None] & ((off_new < 0) | (off_new > side - 3))).any()
 
     ok = alive[:, None]
