@@ -2,15 +2,19 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Phases (each prints its results; a failed check raises and the script
-exits non-zero; nothing is caught):
+Two paths run at full width: the explicit-MPM elastic block and the LBVH
+broad phase.  Phases (each prints its results; a failed check raises and
+the script exits non-zero; nothing is caught):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    fails when no CUDA device is visible;
-2. build: compiles the CUDA kernels from csrc/ with nvcc (sm_90a);
+2. build: compiles the CUDA kernels from csrc/ with nvcc (sm_90a), one
+   nvcc per source, all started together;
 3. kernel against plain: the scan kernel against its plain PyTorch version
    on the card, every dtype and op, n from 1 to 16M + 7 (the main path's
    sizes included), and their times;
+3b. the same for the NSE kernel: g from 1 to 2^24 - 1, both directions,
+   random and adversarial values, exact;
 4. main path at full width: the 262,144-particle elastic block
    (dx = 1/128), bin_state, a 720-step adaptive_chain with
    BinnedConfig2(bins_capacity=2560, block_capacity=2048) and one rebin of
@@ -21,12 +25,25 @@ exits non-zero; nothing is caught):
    dx = 1/32) for 240 steps, past its first rebin, on CUDA and on the CPU;
 6. the first number: particle-steps/s of the 720-step chain, best of 3,
    and the cost of one step (with and without the per-step flag read),
-   one rebin and one bin_state.
+   one rebin and one bin_state;
+7. LBVH path at full width: the 1,048,576-box scene of bench_bvh,
+   build_lbvh (2 NSE launches, both replayed against the plain version,
+   the tree equal to the CPU port's integer for integer) and
+   query_overlaps_exact at c8 with the scene's uniform extent (the
+   in-band fraction and residue walk printed, no overflow; 2,048 sampled
+   queries against a brute force on the card);
+8. LBVH card against CPU at 65,536 boxes: both builds, the masked build,
+   the plain-band, decomposed and exact queries and the escape walk,
+   integer for integer;
+9. LBVH numbers at 1M: build and its layers, topology alone,
+   complete-tree build, escape walk, exact query and its join, and the
+   counts-only sorted query.
 
 The last two lines are the kernel record and the contract line
 ``{"ok": true, "device": {...}}``.
 """
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -43,6 +60,8 @@ import torch  # noqa: E402
 
 import zpc_tpu_torch  # noqa: E402
 from zpc_tpu_torch import scenes  # noqa: E402
+from zpc_tpu_torch.containers import bvh as bvh_mod  # noqa: E402
+from zpc_tpu_torch.ops import nse as nse_op  # noqa: E402
 from zpc_tpu_torch.ops import scan as scan_op  # noqa: E402
 from zpc_tpu_torch.parallel import primitives  # noqa: E402
 from zpc_tpu_torch.sim import mpm_binned2 as b2  # noqa: E402
@@ -54,6 +73,12 @@ CFG_MAIN = b2.BinnedConfig2(bins_capacity=2560, block_capacity=2048)
 SCAN_SIZES = (1, 1000, 2_560, 20_480, 65_536, 131_072, 262_144, 327_680,
               16_777_216 + 7)
 TOL = dict(x=1e-5, v=2e-4, F=1e-5)
+N_BVH, UEXT, MAX_HITS, RESIDUE = 1_048_576, 0.006, 16, 524_288
+WALK_QUERIES = 16_384
+# NSE sizes: one element, one warp's worth, the TPU kernel's block, a ragged
+# multi-block size, the 1M build's gap count, and the largest allowed
+NSE_SIZES = (1, 63, 4_096, 4_096 + 1_234, N_BVH - 1, (1 << 24) - 1)
+HBM_BYTES_PER_MS = 3.35e12 / 1e3     # H100 SXM HBM3 rate (data sheet)
 
 
 def phase(name):
@@ -66,9 +91,9 @@ def check(cond, what):
     print(f"  ok: {what}", flush=True)
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warmup=5):
     """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
-    for _ in range(5):
+    for _ in range(warmup):
         fn()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -97,10 +122,16 @@ def environment():
 
 def build():
     phase("2 build")
-    t0 = time.perf_counter()
-    scan_op.build()
-    print(f"  scan.cu built and loaded in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+
+    def timed(op):
+        t0 = time.perf_counter()
+        op.build()
+        return time.perf_counter() - t0
+    # one nvcc per source, all started together
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        secs = dict(zip(("scan", "nse"), pool.map(timed, (scan_op, nse_op))))
+    for name, sec in secs.items():
+        print(f"  {name}.cu built and loaded in {sec:.2f} s", flush=True)
 
 
 def _scan_input(dtype, n, gen, dev):
@@ -238,7 +269,7 @@ def main_path(dev):
         rebins[0] += 1
         return b2.rebin_adaptive(sim, s, CFG_MAIN)
 
-    scan_op.LAUNCHES = 0
+    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
     with recorded_scans() as calls:
         bst = b2.bin_state(sim, st, CFG_MAIN)
         torch.cuda.synchronize()
@@ -251,6 +282,7 @@ def main_path(dev):
         reb = b2.rebin_adaptive(sim, out, CFG_MAIN)
         torch.cuda.synchronize()
     launches = scan_op.LAUNCHES
+    check(nse_op.LAUNCHES == 0, "the MPM path launched no NSE kernel")
     print(f"  {CHAIN} steps, {rebins[0]} rebins in the chain, scan launches "
           f"{launches}: {launches_bin} in bin_state, {launches_chain} in the "
           f"chain, {launches - launches_bin - launches_chain} in the final "
@@ -365,21 +397,320 @@ def throughput(sim, st, bst, dt, card):
     return pps
 
 
+def _nse_pattern(name, g, gen, dev):
+    i = torch.arange(g, device=dev, dtype=torch.int32)
+    if name == "random":
+        return torch.randint(1, 64, (g,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    if name == "equal":
+        return torch.full((g,), 17, device=dev, dtype=torch.int32)
+    if name == "increasing":
+        return i % 63 + 1
+    if name == "decreasing":
+        return 63 - i % 63
+    if name == "ones":
+        return torch.ones(g, device=dev, dtype=torch.int32)
+    return torch.where(i % 2 == 0, 1, 63).to(torch.int32)   # alternating
+
+
+def nse_vs_plain(dev, card):
+    phase("3b NSE kernel against its plain version")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases, max_err = 0, 0
+    for g in NSE_SIZES:
+        for name in ("random", "equal", "increasing", "decreasing", "ones",
+                     "alternating"):
+            d = _nse_pattern(name, g, gen, dev)
+            for strict in (False, True):
+                got = nse_op.nse(d, strict)
+                ref = nse_op.nse_reference(d, strict)
+                torch.cuda.synchronize()
+                max_err = max(max_err, (got.long() - ref.long()).abs().max()
+                              .item())
+                if not torch.equal(got, ref):
+                    bad = torch.nonzero(got != ref)[:5].flatten().tolist()
+                    raise AssertionError(
+                        f"nse {name} g={g} strict={strict}: differs at "
+                        f"{bad}")
+                cases += 1
+    check(True, f"NSE kernel = plain on {cases} cases, exact (NONE "
+                f"included); g in {NSE_SIZES}")
+    d = _nse_pattern("random", N_BVH - 1, gen, dev)
+    k = cuda_ms(lambda: nse_op.nse(d), 200)
+    p = cuda_ms(lambda: nse_op.nse_reference(d), 10, warmup=2)
+    print(f"  g={N_BVH - 1} random: kernel {k:.4f} ms, plain {p:.4f} ms "
+          f"({card})", flush=True)
+    return max_err, k, p
+
+
+@contextlib.contextmanager
+def recorded_nse():
+    """Keep (input, strict, output) of every NSE sweep the LBVH build runs
+    inside the block, for a replay against the plain version."""
+    calls = []
+    inner = bvh_mod.nse
+
+    def record(d, strict=False):
+        out = inner(d, strict)
+        calls.append((d.clone(), strict, out.clone()))
+        return out
+    bvh_mod.nse = record
+    try:
+        yield calls
+    finally:
+        bvh_mod.nse = inner
+
+
+_TREE_INTS = ("codes", "left", "right", "escape", "leaf_prim")
+
+
+def _assert_trees_equal(got, ref, what):
+    """Two LBvh trees equal integer for integer, boxes bit for bit; where
+    the codes differ, print the first such primitives."""
+    if not torch.equal(got.codes.cpu(), ref.codes):
+        bad = torch.nonzero(got.codes.cpu() != ref.codes).flatten()
+        print(f"  codes differ at {bad.numel()} sorted leaves, first "
+              f"{bad[:5].tolist()}: card {got.codes.cpu()[bad[:5]].tolist()}"
+              f" cpu {ref.codes[bad[:5]].tolist()}", flush=True)
+    for name in _TREE_INTS + ("lo", "hi", "count", "scene_lo",
+                              "scene_extent", "half_max"):
+        if not torch.equal(getattr(got, name).cpu(), getattr(ref, name)):
+            raise AssertionError(f"{what}: {name} differs from the CPU's")
+
+
+def _sample_brute(lo, hi, qlo, qhi, chunk=32_768):
+    """Counts and (query, prim) hit pairs of query boxes against every
+    primitive box, on the card, chunked over the primitives."""
+    cnt = torch.zeros(qlo.shape[0], dtype=torch.int64, device=lo.device)
+    pairs = []
+    for s in range(0, lo.shape[0], chunk):
+        ov = ((lo[None, s:s + chunk] <= qhi[:, None]).all(-1)
+              & (qlo[:, None] <= hi[None, s:s + chunk]).all(-1))
+        cnt += ov.sum(1)
+        q, p = torch.nonzero(ov, as_tuple=True)
+        pairs.append(torch.stack([q, p + s], 1))
+    return cnt, torch.cat(pairs)
+
+
+def _row_pairs(qid_rows, hits_rows, qmap):
+    """Sorted (query slot, prim) pairs of union rows whose qid is mapped
+    by ``qmap`` (qid -> slot, -1 elsewhere); raises on a duplicate hit."""
+    slot = qmap[qid_rows.long()]
+    keep = slot >= 0
+    h = hits_rows[keep]
+    s = slot[keep][:, None].expand_as(h)
+    live = h >= 0
+    key = s[live].long() * (1 << 32) + h[live].long()
+    if torch.unique(key).numel() != key.numel():
+        raise AssertionError("a query's union rows hold a duplicate hit")
+    return torch.sort(key).values
+
+
+def lbvh_path(dev, card):
+    phase("7 LBVH path at full width")
+    lo, hi, c = scenes.lbvh_boxes(N_BVH, dev)
+    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    with recorded_nse() as calls:
+        bvh = bvh_mod.build_lbvh(lo, hi)
+        torch.cuda.synchronize()
+        launches_build = nse_op.LAUNCHES
+        qid_r, hits_r, cnt, ovf = bvh_mod.query_overlaps_exact(
+            bvh, c, c, MAX_HITS, cells=8, uniform_extent=UEXT,
+            residue_budget=RESIDUE)
+        torch.cuda.synchronize()
+    walk_steps = bvh_mod.LAST_WALK_STEPS
+    launches = nse_op.LAUNCHES
+    print(f"  NSE launches {launches} ({launches_build} in build_lbvh), scan "
+          f"launches {scan_op.LAUNCHES}", flush=True)
+    check(launches_build == 2 and launches == 2,
+          "build_lbvh launched the NSE kernel twice, the query not at all")
+    for d, strict, out in calls:
+        if not torch.equal(out, nse_op.nse_reference(d, strict)):
+            raise AssertionError(f"the build's NSE strict={strict} "
+                                 f"differs from the plain version")
+    check(len(calls) == 2, f"both NSE sweeps of the build (g = "
+                           f"{calls[0][0].numel()}, forward and strict "
+                           f"reversed) = plain on the same input, exact")
+    ref = bvh_mod.build_lbvh(lo.cpu(), hi.cpu())
+    _assert_trees_equal(bvh, ref, "1M build")
+    check(True, "1M build on the card = the CPU port's: codes, left, "
+                "right, escape, leaf_prim, lo, hi")
+    n = N_BVH
+    check(torch.equal(bvh.lo[0], lo.amin(0)) and torch.equal(
+        bvh.hi[0], hi.amax(0)), "the root box is the union of all boxes")
+    check(torch.equal(torch.sort(bvh.leaf_prim[n - 1:]).values,
+                      torch.arange(n, dtype=torch.int32, device=dev)),
+          "leaf_prim is a permutation of the primitives")
+
+    qid_s, _, _, band_e = bvh_mod.query_overlaps_sorted(
+        bvh, c, c, MAX_HITS, tile=128, group=512, extract="none",
+        decompose=True, cells=8, uniform_extent=UEXT)
+    band = torch.ones(n, dtype=torch.int32, device=dev).scatter_reduce(
+        0, qid_s.long(), band_e.to(torch.int32), "amin")
+    in_band = band.float().mean().item()
+    print(f"  c8 in-band fraction {in_band:.6f} ({int((band == 0).sum())} "
+          f"residue queries); residue walk {walk_steps} iterations",
+          flush=True)
+    check(not bool(ovf), f"exact query: no residue overflow at budget "
+                         f"{RESIDUE}")
+    gen = torch.Generator().manual_seed(0)
+    sample = torch.randperm(n, generator=gen)[:2048].to(dev)
+    print(f"  {int((band[sample] == 0).sum())} of the 2,048 sampled queries "
+          f"went to the residue walk", flush=True)
+    u = torch.tensor(UEXT, dtype=torch.float32, device=dev)
+    bcnt, bpairs = _sample_brute(lo, hi, c[sample] - u, c[sample] + u)
+    check(torch.equal(cnt[sample].long(), bcnt),
+          f"counts of 2,048 sampled queries = brute force (mean "
+          f"{bcnt.float().mean().item():.3f}, max {int(bcnt.max())})")
+    qmap = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    qmap[sample] = torch.arange(2048, device=dev)
+    small = bcnt[bpairs[:, 0]] <= MAX_HITS
+    want = torch.sort(bpairs[small, 0] * (1 << 32) + bpairs[small, 1]).values
+    got = _row_pairs(qid_r, hits_r, qmap)
+    got = got[bcnt[got >> 32] <= MAX_HITS]
+    check(torch.equal(got, want), f"hit sets of the sampled queries with "
+                                  f"count <= {MAX_HITS} = brute force")
+    return bvh, lo, hi, c, launches
+
+
+def _lbvh_small(n, where):
+    """Every LBVH entry point on the n-box scene, on one device."""
+    lo, hi, c = scenes.lbvh_boxes(n, where)
+    u = torch.tensor(UEXT, dtype=torch.float32, device=where)
+    keep = torch.arange(n, device=where) % 3 != 0
+    b = bvh_mod.build_lbvh(lo, hi)
+    out = {"build": b, "masked build": bvh_mod.build_lbvh(lo, hi, keep),
+           "complete build": bvh_mod.build_lbvh_complete(lo, hi)}
+    out["plain band"] = bvh_mod.query_overlaps_sorted(
+        b, c - u, c + u, MAX_HITS, tile=128)
+    out["sorted c8"] = bvh_mod.query_overlaps_sorted(
+        b, c, c, MAX_HITS, tile=128, group=512, decompose=True, cells=8,
+        uniform_extent=UEXT)
+    out["sorted c4 counts"] = bvh_mod.query_overlaps_sorted(
+        b, c, c, MAX_HITS, tile=128, group=512, extract="none",
+        decompose=True, cells=4, uniform_extent=UEXT)
+    out["exact"] = bvh_mod.query_overlaps_exact(
+        b, c, c, MAX_HITS, cells=8, uniform_extent=UEXT)
+    # the escape walk alone (the exact query's residue engine, idle at
+    # this size) on the first WALK_QUERIES boxes
+    q = c[:WALK_QUERIES]
+    out["walk"] = bvh_mod.query_overlaps(b, q - u, q + u, MAX_HITS) + (
+        bvh_mod.LAST_WALK_STEPS,)
+    return out
+
+
+def lbvh_card_vs_cpu(dev):
+    phase("8 LBVH card against CPU, same port")
+    n = 65_536
+    got, ref = (_lbvh_small(n, w) for w in (dev, torch.device("cpu")))
+    for name in ("build", "masked build", "complete build"):
+        _assert_trees_equal(got[name], ref[name], f"{n} {name}")
+    check(True, f"{n} boxes: build_lbvh (also with every third box "
+                f"masked) and build_lbvh_complete on the card = the CPU's")
+    # every order in the queries is unique, so both devices give the same
+    # rows in the same places
+    for name in ("plain band", "sorted c8", "sorted c4 counts", "exact",
+                 "walk"):
+        for a, b in zip(got[name], ref[name]):
+            if not (torch.equal(a.cpu(), b) if isinstance(a, torch.Tensor)
+                    else a == b):
+                raise AssertionError(f"{name} on the card differs from "
+                                     f"the CPU's")
+    check(not bool(got["exact"][3]), "exact: no overflow")
+    check(True, f"plain band and c8 sorted queries (peel), c4 (counts only), "
+                f"the exact query and the escape walk of {WALK_QUERIES} "
+                f"queries ({got['walk'][2]} iterations): every output on the "
+                f"card = the CPU's, integer for integer")
+
+
+def lbvh_numbers(bvh, lo, hi, c, card):
+    phase("9 LBVH numbers on the card")
+    n = N_BVH
+    ms = {}
+    ms["build"] = cuda_ms(lambda: bvh_mod.build_lbvh(lo, hi), 5, warmup=1)
+    ms["topology"] = cuda_ms(lambda: bvh_mod._karras_topology(bvh.codes), 5,
+                             warmup=1)
+    ms["complete"] = cuda_ms(lambda: bvh_mod.build_lbvh_complete(lo, hi), 5,
+                             warmup=1)
+
+    def exact():
+        ovf = bvh_mod.query_overlaps_exact(
+            bvh, c, c, MAX_HITS, cells=8, uniform_extent=UEXT,
+            residue_budget=RESIDUE)[3]
+        if bool(ovf):
+            raise AssertionError("exact query overflowed")
+    ms["exact"] = cuda_ms(exact, 5, warmup=1)
+
+    def quantize_sort():
+        keep = torch.ones(n, dtype=torch.bool, device=lo.device)
+        codes = bvh_mod._quantize(lo, hi, keep)[0]
+        return codes[torch.argsort(codes, stable=True)]
+    ms["quantize_sort"] = cuda_ms(quantize_sort, 5, warmup=1)
+    ms["sorted_peel"] = cuda_ms(lambda: bvh_mod.query_overlaps_sorted(
+        bvh, c, c, MAX_HITS, tile=128, group=512, decompose=True, cells=8,
+        uniform_extent=UEXT), 5, warmup=1)
+    ms["sorted_none"] = cuda_ms(lambda: bvh_mod.query_overlaps_sorted(
+        bvh, c, c, MAX_HITS, tile=128, group=512, extract="none",
+        decompose=True, cells=8, uniform_extent=UEXT), 5, warmup=1)
+    u = torch.tensor(UEXT, dtype=torch.float32, device=c.device)
+    q = c[:WALK_QUERIES]
+    ms["walk"] = cuda_ms(lambda: bvh_mod.query_overlaps(
+        bvh, q - u, q + u, MAX_HITS), 5, warmup=1)
+    print(f"  query_overlaps (escape walk) of {WALK_QUERIES} queries "
+          f"{ms['walk']:.4f} ms, {bvh_mod.LAST_WALK_STEPS} iterations "
+          f"(mean of 5; {card})", flush=True)
+    print(f"  build_lbvh {ms['build']:.4f} ms = "
+          f"{n / ms['build'] / 1e3:.4f} Mprims/s; _karras_topology "
+          f"{ms['topology']:.4f} ms; build_lbvh_complete "
+          f"{ms['complete']:.4f} ms (mean of 5; {card})", flush=True)
+    print(f"  query_overlaps_exact c8 {ms['exact']:.4f} ms = "
+          f"{n / ms['exact'] / 1e3:.4f} Mq/s; query_overlaps_sorted c8 "
+          f"peel {ms['sorted_peel']:.4f} ms, counts only "
+          f"{ms['sorted_none']:.4f} ms (mean of 5; {card})", flush=True)
+    print(f"  layers: quantize + sort {ms['quantize_sort']:.4f} ms, "
+          f"topology {ms['topology']:.4f} ms, boxes + escape (the rest of "
+          f"the build) "
+          f"{ms['build'] - ms['quantize_sort'] - ms['topology']:.4f} ms; "
+          f"banded join {ms['sorted_peel']:.4f} ms, residue compaction + "
+          f"walk (the rest of the exact query) "
+          f"{ms['exact'] - ms['sorted_peel']:.4f} ms ({card})", flush=True)
+    return ms
+
+
 def main():
     card = environment()
     dev = zpc_tpu_torch.cuda_device(0)
     build()
     max_err, times = kernel_vs_plain(dev, card)
+    nse_err, nse_ms, nse_plain_ms = nse_vs_plain(dev, card)
     sim, st, bst, dt, launches = main_path(dev)
     card_vs_cpu(dev)
     throughput(sim, st, bst, dt, card)
+    bvh, lo, hi, c, nse_launches = lbvh_path(dev, card)
+    lbvh_card_vs_cpu(dev)
+    lbvh_numbers(bvh, lo, hi, c, card)
     k_ms, p_ms = times[327_680]
+    x = torch.randint(0, 2, (327_680,), device=dev, dtype=torch.int32)
+    lib_ms = cuda_ms(lambda: torch.cumsum(x, 0, dtype=torch.int32), 200)
+    print(f"  torch.cumsum int32 n=327680: {lib_ms:.4f} ms ({card})",
+          flush=True)
+    # bound: each input read once and each output written once, 4 + 4
+    # bytes per element, over the HBM rate
     print(json.dumps({"kernels": [{
         "name": "scan", "route": "cuda",
         "source": "zpc_tpu_torch/csrc/scan.cu",
         "replaces": "zpc_tpu/ops/scan_pallas.py:124",
         "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms}]}), flush=True)
+        "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": 8 * 327_680 / HBM_BYTES_PER_MS, "bound_by": "bytes",
+        "library_ms": lib_ms}, {
+        "name": "nse", "route": "cuda",
+        "source": "zpc_tpu_torch/csrc/nse.cu",
+        "replaces": "zpc_tpu/ops/nse_pallas.py:92",
+        "launches": nse_launches, "max_abs_err": nse_err,
+        "ms": nse_ms, "plain_ms": nse_plain_ms,
+        "bound_ms": 8 * (N_BVH - 1) / HBM_BYTES_PER_MS, "bound_by": "bytes",
+        "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,10 @@ The package mirrors ``zpc_tpu``'s module paths (``zpc_tpu_torch/sim/
 mpm_binned2.py`` is the counterpart of ``zpc_tpu/sim/mpm_binned2.py``) and is
 checked against it on the same inputs.  Plain tensor code is PyTorch; every
 kernel that the JAX package wrote in Pallas for the TPU is a hand-written
-CUDA kernel under ``csrc/``, built at first use (:mod:`._kernels`).  A
+CUDA kernel under ``csrc/``, built at first use (:mod:`._kernels`): the
+prefix scan (``ops/scan.py``, ``csrc/scan.cu``) and the Karras
+nearest-smaller-element sweep of the LBVH build (``ops/nse.py``,
+``csrc/nse.cu``).  A
 tensor on the CPU takes each kernel's plain PyTorch version; a tensor on a
 CUDA device launches the kernel or raises.
 

@@ -1,2 +1,2 @@
-"""Containers: structured fields and block tables
+"""Containers: structured fields, block tables and the LBVH
 (counterpart of ``zpc_tpu/containers``)."""

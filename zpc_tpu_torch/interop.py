@@ -3,15 +3,18 @@
 The converters read the JAX package's dataclasses through ``numpy.asarray``
 and class names only, so this module imports no JAX: a caller that holds
 ``zpc_tpu`` objects already has JAX loaded.  Only what the explicit MPM main
-path carries is supported; anything else raises.
+path and the LBVH carry is supported; anything else raises.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .containers.block_table import BlockTable
+from .containers.bvh import LBvh
 from .containers.structured import StructuredField
 from .geometry.collider import Collider, ColliderType
 from .geometry.levelset import ComplementLevelSet, Cuboid, HalfSpace
@@ -22,7 +25,8 @@ from .sim.mpm import MPMSim, MPMState
 from .sim.mpm_binned2 import BinnedConfig2, BinState
 
 __all__ = ["sim_from_jax", "config_from_jax", "state_from_jax",
-           "binstate_from_jax", "state_to_numpy"]
+           "binstate_from_jax", "state_to_numpy", "lbvh_from_jax",
+           "lbvh_to_numpy"]
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -130,3 +134,23 @@ def state_to_numpy(state) -> dict:
                 table_keys=arr(state.grid.table.keys),
                 table_count=arr(state.grid.table.count),
                 origin=arr(state.grid.transform.matrix)[:3, 3])
+
+
+_LBVH_FIELDS = [f.name for f in dataclasses.fields(LBvh)]
+
+
+def lbvh_from_jax(bvh, device: torch.device) -> LBvh:
+    """``zpc_tpu.containers.bvh.LBvh`` -> :class:`LBvh` on ``device``,
+    field for field (dtypes kept)."""
+    return LBvh(**{k: _tensor(getattr(bvh, k), device)
+                   for k in _LBVH_FIELDS})
+
+
+def lbvh_to_numpy(bvh) -> dict:
+    """Numpy arrays of every field of an LBVH of either package."""
+    out = {}
+    for k in _LBVH_FIELDS:
+        a = getattr(bvh, k)
+        out[k] = (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
+                  else np.asarray(a))
+    return out

@@ -1,2 +1,2 @@
-"""Small-tensor math, B-splines, transforms
+"""Small-tensor math, B-splines, transforms, morton bit tricks
 (counterpart of ``zpc_tpu/math``)."""

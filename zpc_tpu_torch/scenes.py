@@ -2,7 +2,8 @@
 
 :func:`mpm_block` is ``examples/mpm_block.py:build`` line for line: the same
 ``default_rng(7)`` positions, material, colliders and CFL timestep, so a
-JAX run and a port run start from the same particles.
+JAX run and a port run start from the same particles.  :func:`lbvh_boxes`
+is the LBVH broad-phase scene of ``benchmarks/run_all.py:bench_bvh``.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from .models.cfl import timestep_linear_elasticity
 from .models.constitutive import FixedCorotated
 from .sim.mpm import MPMSim, MPMState, make_mpm_state
 
-__all__ = ["mpm_block"]
+__all__ = ["mpm_block", "lbvh_boxes"]
 
 
 def mpm_block(n_particles: int, dx: float, device: torch.device,
@@ -48,3 +49,16 @@ def mpm_block(n_particles: int, dx: float, device: torch.device,
                  colliders=(ground, walls))
     dt = float(timestep_linear_elasticity(E, nu, 1e3, dx, cfl=0.4))
     return sim, st, dt
+
+
+def lbvh_boxes(n: int, device: torch.device, seed: int = 0,
+               half: float = 0.002
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``n`` boxes of half-extent ``half`` on each axis around centres drawn
+    uniformly in the unit cube by ``default_rng(seed)`` (float32), as
+    ``bench_bvh`` makes them.  Returns ``(lo, hi, centers)`` on
+    ``device``."""
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    h = np.full((n, 3), half, np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (c - h, c + h, c))
