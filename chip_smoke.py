@@ -9,12 +9,19 @@ the script exits non-zero; nothing is caught):
 1. environment: torch and CUDA versions, the card's name and power limit;
    fails when no CUDA device is visible;
 2. build: compiles the CUDA kernels from csrc/ with nvcc (sm_90a), one
-   nvcc per source, all started together;
+   nvcc per source, all started together, and prints each kernel's
+   registers, shared memory and spills as ptxas reports them;
 3. kernel against plain: the scan kernel against its plain PyTorch version
    on the card, every dtype and op, n from 1 to 16M + 7 (the main path's
-   sizes included), and their times;
+   sizes and the tile edges included); the look-back under stress (calls
+   back to back, views that are not 16-byte aligned, two streams at once,
+   the epoch's wrap, over stale statuses); then, at 327,680 and
+   16,777,223, the device time per call from torch.profiler, the CUDA
+   kernels each call launches (must be 1) and the back-to-back time per
+   call, beside torch.cumsum's;
 3b. the same for the NSE kernel: g from 1 to 2^24 - 1, both directions,
-   random and adversarial values, exact;
+   random and adversarial values, exact; the same stress; the split at
+   g = 1,048,575;
 4. main path at full width: the 262,144-particle elastic block
    (dx = 1/128), bin_state, a 720-step adaptive_chain with
    BinnedConfig2(bins_capacity=2560, block_capacity=2048) and one rebin of
@@ -48,6 +55,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -57,9 +65,12 @@ sys.path.insert(0, ROOT)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from torch.autograd import DeviceType  # noqa: E402
+from torch.profiler import (  # noqa: E402
+    ProfilerActivity, profile, record_function)
 
 import zpc_tpu_torch  # noqa: E402
-from zpc_tpu_torch import scenes  # noqa: E402
+from zpc_tpu_torch import _kernels, scenes  # noqa: E402
 from zpc_tpu_torch.containers import bvh as bvh_mod  # noqa: E402
 from zpc_tpu_torch.ops import nse as nse_op  # noqa: E402
 from zpc_tpu_torch.ops import scan as scan_op  # noqa: E402
@@ -70,15 +81,21 @@ N_MAIN, DX_MAIN, CHAIN = 262_144, 1.0 / 128, 720
 CFG_MAIN = b2.BinnedConfig2(bins_capacity=2560, block_capacity=2048)
 # 2,560 (the pad sums), 20,480 (the table rank), 65,536 (the dummy keys),
 # 262,144 and 327,680 (the lane ranks) are the main path's scan sizes
-SCAN_SIZES = (1, 1000, 2_560, 20_480, 65_536, 131_072, 262_144, 327_680,
+# 4,096, 4,097 and 12,288 are one tile, one tile plus one, and three tiles;
+# from 1,048,576 on the kernel takes tiles of 8,192
+SCAN_SIZES = (1, 1000, 2_560, 4_096, 4_097, 12_288, 20_480, 65_536, 131_072,
+              262_144, 327_680, 1_048_575, 1_048_576 + 8_193,
               16_777_216 + 7)
 TOL = dict(x=1e-5, v=2e-4, F=1e-5)
 N_BVH, UEXT, MAX_HITS, RESIDUE = 1_048_576, 0.006, 16, 524_288
 WALK_QUERIES = 16_384
-# NSE sizes: one element, one warp's worth, the TPU kernel's block, a ragged
-# multi-block size, the 1M build's gap count, and the largest allowed
-NSE_SIZES = (1, 63, 4_096, 4_096 + 1_234, N_BVH - 1, (1 << 24) - 1)
+# NSE sizes: one element, one warp's worth, the TPU kernel's block, a
+# ragged size under one tile, one tile, one tile plus one, three tiles, the
+# 1M build's gap count, and the largest allowed
+NSE_SIZES = (1, 63, 4_096, 4_096 + 1_234, 8_192, 8_193, 24_576, N_BVH - 1,
+             (1 << 24) - 1)
 HBM_BYTES_PER_MS = 3.35e12 / 1e3     # H100 SXM HBM3 rate (data sheet)
+_WINDOW = "timed calls"               # the profiler window of device_split
 
 
 def phase(name):
@@ -92,7 +109,9 @@ def check(cond, what):
 
 
 def cuda_ms(fn, reps, warmup=5):
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+    """Mean time per call of ``fn`` over ``reps`` back-to-back calls,
+    between two CUDA events: the larger of the host's time to launch the
+    calls and the device's time."""
     for _ in range(warmup):
         fn()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -103,6 +122,120 @@ def cuda_ms(fn, reps, warmup=5):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+# host calls that put work on the card: kernel launches, memsets, copies
+_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaMemset", "cuMemset",
+             "cudaMemcpy", "cuMemcpy")
+
+
+def device_split(fn, reps=100):
+    """(device ms per call, device activities per call, their names) of
+    ``fn`` from torch.profiler.  The activities per call are the host's
+    launch, memset and copy calls inside a window of ``reps`` calls (the
+    host's clock, exact); the device time per call is the mean duration of
+    the device events times that count, so an event the profiler failed to
+    record (it drops a few) does not count as a missing launch."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(_WINDOW):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    events = prof.events()
+    win = [e.time_range for e in events
+           if e.name == _WINDOW and e.device_type == DeviceType.CPU]
+    if len(win) != 1:
+        raise RuntimeError(f"{len(win)} profiler windows, not 1")
+    launches = [e for e in events if e.device_type == DeviceType.CPU
+                and e.name.startswith(_LAUNCHES)
+                and win[0].start <= e.time_range.start <= win[0].end]
+    ev = [e for e in events
+          if e.device_type == DeviceType.CUDA and e.name != _WINDOW]
+    if not ev:
+        raise RuntimeError("the profiler saw no device time")
+    per_call = len(launches) / reps
+    mean_ms = sum(e.time_range.elapsed_us() for e in ev) / len(ev) / 1e3
+    return mean_ms * per_call, per_call, sorted({e.name for e in ev})
+
+
+def split(label, fn, card, kernel=True):
+    """Device time and per-call time of ``fn``, printed; a kernel of the
+    port must launch exactly one CUDA kernel per call."""
+    dev_ms, per_call, names = device_split(fn)
+    ms = cuda_ms(fn, 200)
+    print(f"  {label}: device {dev_ms:.6f} ms, per call {ms:.6f} ms, "
+          f"{per_call:g} kernels per call {names} ({card})", flush=True)
+    if kernel:
+        check(per_call == 1, f"{label}: one CUDA kernel per call, no memset")
+    return {"device_ms": dev_ms, "ms": ms, "kernels_per_call": per_call}
+
+
+def stress(name, call, plain, make, n, module):
+    """The look-back under stress, each result against its plain version
+    (``call(x, k)`` and ``plain(x, k)`` for the k-th input ``make(n, k)``):
+    calls back to back on inputs of the same and of growing sizes, views at
+    1, 2 and 3 elements (not 16-byte aligned), two streams at once, and the
+    epoch's wrap (a workspace started 2 below it and full of stale statuses
+    of epochs 0-2; 2 small calls, the second of which wraps and must zero
+    them, then 3 at n)."""
+    def same(x, k, got):
+        want = plain(x, k)
+        if got.dtype == torch.uint32:       # compared as their bits
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if not torch.equal(got, want):
+            bad = torch.nonzero(got != want)[:5].flatten().tolist()
+            raise AssertionError(f"{name} n={x.numel()}: differs at {bad}")
+    xs = [make(m, k) for k, m in enumerate((n, n, 3 * n, 10 * n, n // 3))]
+    outs = [call(x, k) for k, x in enumerate(xs)]
+    for k, (x, got) in enumerate(zip(xs, outs)):
+        same(x, k, got)
+    base = make(n + 8, 9)
+    for off in (1, 2, 3):
+        x = base[off:off + n + 5]
+        if x.data_ptr() % 16 == 0:
+            raise AssertionError("the offset view is 16-byte aligned")
+        same(x, off, call(x, off))
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    x1, x2 = make(2 * n + 3, 10), make(2 * n + 5, 11)
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s1):
+        g1 = call(x1, 0)
+    with torch.cuda.stream(s2):
+        g2 = call(x2, 1)
+    torch.cuda.synchronize()
+    same(x1, 0, g1)
+    same(x2, 1, g2)
+    keep = module.WORKSPACE
+    module.WORKSPACE = _kernels.Workspace(
+        epoch=_kernels.EPOCH_LIMIT - 2, stale=True)
+    try:
+        tile = module.build().tile
+        xs = [make(m, 20 + k) for k, m in enumerate(
+            (3 * tile, 2 * tile + 1, n, n - 999, n - 1998))]
+        ws = module.WORKSPACE.get(
+            xs[0].device, torch.cuda.current_stream().cuda_stream,
+            module.build().status_words(n))
+        for k, x in enumerate(xs):
+            same(x, k, call(x, k))
+            if k == 1 and (ws[_kernels.HEADER_WORDS:].any() or
+                           _kernels.Workspace.header(ws) != (0, 0, 0)):
+                raise AssertionError(f"{name}: the call that wrapped the "
+                                     f"epoch left stale statuses")
+        if _kernels.Workspace.header(ws) != (0, 0, 3):
+            raise AssertionError(f"{name}: workspace header after the wrap "
+                                 f"{_kernels.Workspace.header(ws)}, not "
+                                 f"(0, 0, 3)")
+    finally:
+        module.WORKSPACE = keep
+    check(True, f"{name} under stress = plain: 5 calls back to back (n to "
+                f"{10 * n}), 3 unaligned views, 2 streams at once, 5 calls "
+                f"across the epoch's wrap (stale statuses zeroed at the wrap, "
+                f"counters reset, epoch 3 after)")
 
 
 def environment():
@@ -132,6 +265,35 @@ def build():
         secs = dict(zip(("scan", "nse"), pool.map(timed, (scan_op, nse_op))))
     for name, sec in secs.items():
         print(f"  {name}.cu built and loaded in {sec:.2f} s", flush=True)
+        for kernel, regs, smem, spill in _ptxas_lines(
+                _kernels.ptxas_report(name)):
+            print(f"    {kernel}: {regs} registers, {smem} B shared memory, "
+                  f"{spill} B spilled (ptxas -v)", flush=True)
+
+
+_TYPES = {"i": "int32", "j": "uint32", "f": "float32"}
+
+
+def _ptxas_lines(report):
+    """(kernel, registers, shared bytes, spill bytes) per entry function of
+    a ptxas -v report, with template arguments spelled out."""
+    out = []
+    for m in re.finditer(
+            r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores"
+            r".*?Used (\d+) registers.*?(\d+) bytes smem", report, re.S):
+        mangled = m.group(1)
+        name = re.search(r"([a-z]+_kernel)", mangled).group(1)
+        args = re.search(r"_kernelI([ijf])NS_3(Add|Max|Min)I[ijf]EELi(\d+)E"
+                         r"Lb([01])", mangled)
+        if args:
+            name += (f"<{_TYPES[args.group(1)]}, {args.group(2)}, "
+                     f"{args.group(3)} items, "
+                     f"{'aligned' if args.group(4) == '1' else 'scalar'}>")
+        out.append((name, int(m.group(3)), int(m.group(4)),
+                    int(m.group(2))))
+    if not out:
+        raise AssertionError("no kernel in the ptxas report")
+    return out
 
 
 def _scan_input(dtype, n, gen, dev):
@@ -172,15 +334,32 @@ def kernel_vs_plain(dev, card):
     check(True, f"kernel = plain on {len(SCAN_SIZES) * 12} cases "
                 f"(ints exact, f32 rtol 2e-4 atol 1e-3); max abs err "
                 f"{max_err}")
+    for dtype in (torch.int32, torch.uint32, torch.float32):
+        for op, excl in (("add", False), ("max", False), ("add", True)):
+            if dtype == torch.float32 and op == "add":
+                continue            # float add is not exact: checked above
+            stress(f"scan {op}{'/excl' if excl else ''} {dtype}",
+                   lambda x, k, op=op, excl=excl: scan_op.scan(x, op, excl),
+                   lambda x, k, op=op, excl=excl: scan_op.scan_reference(
+                       x, op, excl),
+                   lambda m, k, dtype=dtype: _scan_input(dtype, m, gen, dev),
+                   327_680, scan_op)
     times = {}
     for n in (327_680, 16_777_216 + 7):
         x = torch.randint(0, 2, (n,), generator=gen, device=dev,
                           dtype=torch.int32)
-        k = cuda_ms(lambda: scan_op.scan(x), 200)
-        p = cuda_ms(lambda: scan_op.scan_reference(x), 200)
-        times[n] = (k, p)
-        print(f"  int32 add n={n}: kernel {k:.4f} ms, plain "
-              f"{p:.4f} ms ({card})", flush=True)
+        times[n] = split(f"scan int32 add n={n}",
+                         lambda: scan_op.scan(x), card)
+        times[n]["plain_ms"] = cuda_ms(lambda: scan_op.scan_reference(x),
+                                       200)
+        print(f"  plain version n={n}: {times[n]['plain_ms']:.6f} ms per "
+              f"call; bound {8 * n / HBM_BYTES_PER_MS:.6f} ms (8 bytes per "
+              f"element at 3.35 TB/s; {card})", flush=True)
+        lib = split(f"torch.cumsum int32 n={n}",
+                    lambda: torch.cumsum(x, 0, dtype=torch.int32), card,
+                    kernel=False)
+        if n == 327_680:
+            times["library"] = lib
     return max_err, times
 
 
@@ -435,12 +614,18 @@ def nse_vs_plain(dev, card):
                 cases += 1
     check(True, f"NSE kernel = plain on {cases} cases, exact (NONE "
                 f"included); g in {NSE_SIZES}")
+    # strict on odd calls
+    stress("nse", lambda d, k: nse_op.nse(d, k % 2 == 1),
+           lambda d, k: nse_op.nse_reference(d, k % 2 == 1),
+           lambda g, k: _nse_pattern("random", g, gen, dev), 100_000,
+           nse_op)
     d = _nse_pattern("random", N_BVH - 1, gen, dev)
-    k = cuda_ms(lambda: nse_op.nse(d), 200)
-    p = cuda_ms(lambda: nse_op.nse_reference(d), 10, warmup=2)
-    print(f"  g={N_BVH - 1} random: kernel {k:.4f} ms, plain {p:.4f} ms "
-          f"({card})", flush=True)
-    return max_err, k, p
+    t = split(f"nse g={N_BVH - 1} random", lambda: nse_op.nse(d), card)
+    t["plain_ms"] = cuda_ms(lambda: nse_op.nse_reference(d), 10, warmup=2)
+    print(f"  plain version g={N_BVH - 1}: {t['plain_ms']:.4f} ms per call; "
+          f"bound {8 * (N_BVH - 1) / HBM_BYTES_PER_MS:.6f} ms ({card})",
+          flush=True)
+    return max_err, t
 
 
 @contextlib.contextmanager
@@ -682,33 +867,34 @@ def main():
     dev = zpc_tpu_torch.cuda_device(0)
     build()
     max_err, times = kernel_vs_plain(dev, card)
-    nse_err, nse_ms, nse_plain_ms = nse_vs_plain(dev, card)
+    nse_err, nse_t = nse_vs_plain(dev, card)
     sim, st, bst, dt, launches = main_path(dev)
     card_vs_cpu(dev)
     throughput(sim, st, bst, dt, card)
     bvh, lo, hi, c, nse_launches = lbvh_path(dev, card)
     lbvh_card_vs_cpu(dev)
     lbvh_numbers(bvh, lo, hi, c, card)
-    k_ms, p_ms = times[327_680]
-    x = torch.randint(0, 2, (327_680,), device=dev, dtype=torch.int32)
-    lib_ms = cuda_ms(lambda: torch.cumsum(x, 0, dtype=torch.int32), 200)
-    print(f"  torch.cumsum int32 n=327680: {lib_ms:.4f} ms ({card})",
-          flush=True)
-    # bound: each input read once and each output written once, 4 + 4
-    # bytes per element, over the HBM rate
+    scan_t, lib_t = times[327_680], times["library"]
+    # ms: back-to-back time per call; device_ms: the profiler's device time
+    # per call.  bound: each input read once and each output written once,
+    # 4 + 4 bytes per element, over the HBM rate
     print(json.dumps({"kernels": [{
         "name": "scan", "route": "cuda",
         "source": "zpc_tpu_torch/csrc/scan.cu",
         "replaces": "zpc_tpu/ops/scan_pallas.py:124",
         "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms,
+        "ms": scan_t["ms"], "device_ms": scan_t["device_ms"],
+        "kernels_per_call": scan_t["kernels_per_call"],
+        "plain_ms": scan_t["plain_ms"],
         "bound_ms": 8 * 327_680 / HBM_BYTES_PER_MS, "bound_by": "bytes",
-        "library_ms": lib_ms}, {
+        "library_ms": lib_t["ms"], "library_device_ms": lib_t["device_ms"]}, {
         "name": "nse", "route": "cuda",
         "source": "zpc_tpu_torch/csrc/nse.cu",
         "replaces": "zpc_tpu/ops/nse_pallas.py:92",
         "launches": nse_launches, "max_abs_err": nse_err,
-        "ms": nse_ms, "plain_ms": nse_plain_ms,
+        "ms": nse_t["ms"], "device_ms": nse_t["device_ms"],
+        "kernels_per_call": nse_t["kernels_per_call"],
+        "plain_ms": nse_t["plain_ms"],
         "bound_ms": 8 * (N_BVH - 1) / HBM_BYTES_PER_MS, "bound_by": "bytes",
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from zpc_tpu_torch import interop, scenes
+from zpc_tpu_torch import _kernels, interop, scenes
 from zpc_tpu_torch.containers import bvh as tbvh
 from zpc_tpu_torch.math import bits as tbits
 from zpc_tpu_torch.ops import nse as tnse
@@ -166,6 +166,21 @@ def test_nse_plain_matches_bruteforce(pattern, g, strict):
         assert (got == NONE).all()                   # w = 0: nothing below
 
 
+@pytest.mark.parametrize("strict", [False, True])
+def test_nse_plain_values_outside_never_answer(strict):
+    """Values outside [0, 63] are never an answer and get NONE (64 too,
+    whose strict w = 63 would otherwise find one)."""
+    d = _pattern("random", 3000).astype(np.int32)
+    d[::7] = 64
+    d[3::11] = -5
+    d[5::13] = 0
+    d[6::17] = 100
+    inside = (d >= 0) & (d <= 63)
+    want = _brute_nse(np.where(inside, d, 1 << 20), strict)
+    want[~inside] = NONE
+    np.testing.assert_array_equal(tnse.nse(_t(d), strict).numpy(), want)
+
+
 def test_nse_rejects_bad_input():
     with pytest.raises(TypeError):
         tnse.nse(torch.ones(4, dtype=torch.int64))
@@ -183,13 +198,35 @@ def test_nse_plain_version_does_not_count_launches():
     assert tnse.LAUNCHES == before
 
 
+def test_nse_cpu_needs_no_kernel_library(monkeypatch):
+    """A CPU tensor takes the plain version and never loads the library."""
+    def no_library():
+        raise AssertionError("the CPU path loaded the kernel library")
+    monkeypatch.setattr(tnse, "_library", no_library)
+    d = _pattern("random", 9000)
+    for strict in (False, True):
+        np.testing.assert_array_equal(
+            tnse.nse(_t(d.astype(np.int32)), strict).numpy(),
+            _brute_nse(d, strict))
+
+
+def _nse_cuda_check(got, x, strict):
+    np.testing.assert_array_equal(
+        got.cpu().numpy(), tnse.nse_reference(x.cpu(), strict).numpy())
+
+
 @pytest.mark.cuda
-def test_nse_kernel_matches_plain_on_cuda():
+def test_nse_kernel_matches_plain_on_cuda(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the NSE kernel has no CPU mode")
+    kern = tnse.build()
+    tile = kern.tile
     cases = [_pattern(p, g) for p in PATTERNS for g in (1, 2, 63, 1000)]
-    cases += [_pattern("random", g) for g in (511, 512, 513, 4096 + 1234,
-                                              1_048_575)]
+    # one tile, one tile plus one, an exact multiple, many tiles
+    cases += [_pattern("random", g) for g in (511, 512, 513, tile, tile + 1,
+                                              3 * tile, 4096 + 1234, 65_535,
+                                              1_048_575, (1 << 24) - 1)]
+    cases += [_pattern(p, 5 * tile + 17) for p in PATTERNS]
     for d in cases:
         x = _t(d.astype(np.int32))
         for strict in (False, True):
@@ -197,8 +234,60 @@ def test_nse_kernel_matches_plain_on_cuda():
             got = tnse.nse(x.cuda(), strict)
             torch.cuda.synchronize()
             assert tnse.LAUNCHES == before + 1
-            np.testing.assert_array_equal(
-                got.cpu().numpy(), tnse.nse_reference(x, strict).numpy())
+            _nse_cuda_check(got, x, strict)
+    # values outside [0, 63] never answer and get NONE
+    d = _pattern("random", 3 * tile + 5).astype(np.int32)
+    d[::7] = 64
+    d[3::11] = -5
+    d[5::13] = 0
+    d[6::17] = 100
+    for strict in (False, True):
+        _nse_cuda_check(tnse.nse(_t(d).cuda(), strict), _t(d), strict)
+    # back to back with no sync, same and growing sizes
+    xs = [_t(_pattern("random", g, seed=k).astype(np.int32)).cuda()
+          for k, g in enumerate((50_000, 50_000, 200_000, 1_048_575, 9_000))]
+    outs = [tnse.nse(x, k % 2 == 1) for k, x in enumerate(xs)]
+    for k, (x, got) in enumerate(zip(xs, outs)):
+        _nse_cuda_check(got, x, k % 2 == 1)
+    # views at 1, 2 and 3 elements: not 16-byte aligned
+    base = _t(_pattern("random", 100_008, seed=3).astype(np.int32)).cuda()
+    for off in (1, 2, 3):
+        x = base[off:off + 100_005]
+        assert x.data_ptr() % 16 != 0
+        _nse_cuda_check(tnse.nse(x, off == 2), x, off == 2)
+    # two streams at once
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    x1 = _t(_pattern("random", 600_001, seed=7).astype(np.int32)).cuda()
+    x2 = _t(_pattern("random", 700_003, seed=8).astype(np.int32)).cuda()
+    s1.wait_stream(torch.cuda.current_stream())
+    s2.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s1):
+        g1 = tnse.nse(x1)
+    with torch.cuda.stream(s2):
+        g2 = tnse.nse(x2, True)
+    torch.cuda.synchronize()
+    _nse_cuda_check(g1, x1, False)
+    _nse_cuda_check(g2, x2, True)
+    # across the epoch's wrap: a workspace that starts 2 below it, full of
+    # stale statuses of epochs 0-2; two small calls, the second of which
+    # wraps the epoch and must zero them, then three large ones that would
+    # read any it left as predecessors
+    monkeypatch.setattr(tnse, "WORKSPACE", _kernels.Workspace(
+        epoch=_kernels.EPOCH_LIMIT - 2, stale=True))
+    sizes = (3 * tile, 2 * tile + 1, 300_000, 300_000 - 999, 250_000)
+    xs = [_t(_pattern("random", g, seed=k).astype(np.int32)).cuda()
+          for k, g in enumerate(sizes)]
+    stream = torch.cuda.current_stream().cuda_stream
+    ws = tnse.WORKSPACE.get(xs[0].device, stream,
+                            kern.status_words(max(sizes)))
+    assert ws[_kernels.HEADER_WORDS:].any()
+    for k, x in enumerate(xs):
+        _nse_cuda_check(tnse.nse(x, k % 2 == 0), x, k % 2 == 0)
+        if k == 1:
+            assert _kernels.Workspace.header(ws) == (0, 0, 0)
+            assert not ws[_kernels.HEADER_WORDS:].any()
+    assert tnse.WORKSPACE.get(xs[0].device, stream, 1) is ws
+    assert _kernels.Workspace.header(ws) == (0, 0, 3)
 
 
 # ---------------------------------------------------------------- build

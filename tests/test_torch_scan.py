@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from zpc_tpu_torch import _kernels
 from zpc_tpu_torch.ops import scan as tscan
 from zpc_tpu_torch.parallel import primitives as tprim
 
@@ -158,27 +159,142 @@ def test_plain_version_does_not_count_launches():
     assert tscan.LAUNCHES == before
 
 
+def test_workspace_sizing_and_growth():
+    """The look-back scratch: zeroed, a power of two in words, one tensor
+    per (device, stream), made anew and zeroed when a call needs more."""
+    ws = _kernels.Workspace()
+    cpu = torch.device("cpu")
+    head = _kernels.HEADER_WORDS
+    a = ws.get(cpu, 7, 10)
+    assert a.dtype == torch.int32 and a.device == cpu and a.numel() == 16
+    assert not a.any()
+    assert ws.get(cpu, 7, 16 - head) is a and ws.get(cpu, 7, 1) is a
+    assert ws.get(cpu, 8, 10) is not a               # another stream
+    a[0] = 3                                         # grown: zeroed again
+    b = ws.get(cpu, 7, 17 - head)
+    assert b is not a and b.numel() == 32 and not b.any()
+    assert ws.get(cpu, 7, 32 - head) is b
+    assert ws.get(cpu, 9, 1).numel() == 8
+
+
+def test_workspace_start_epoch():
+    limit = _kernels.EPOCH_LIMIT
+    assert limit == 1 << 30
+    buf = _kernels.Workspace(epoch=limit - 2).get(torch.device("cpu"), 0, 3)
+    assert _kernels.Workspace.header(buf) == (0, 0, limit - 2)
+    assert not buf[_kernels.HEADER_WORDS:].any()
+    for bad in (-1, limit):
+        with pytest.raises(ValueError):
+            _kernels.Workspace(epoch=bad)
+
+
+def test_workspace_stale_statuses():
+    """The wrap test's workspace: every word past the header is below 12,
+    a status of epoch 0, 1 or 2, and the flags 1, 2 and 3 all occur."""
+    buf = _kernels.Workspace(epoch=5, stale=True).get(
+        torch.device("cpu"), 0, 500)
+    assert _kernels.Workspace.header(buf) == (0, 0, 5)
+    rest = buf[_kernels.HEADER_WORDS:]
+    assert ((rest >= 0) & (rest < 12)).all()
+    assert set((rest & 3).unique().tolist()) == {0, 1, 2, 3}
+
+
+@pytest.mark.parametrize("n,words", [(1, 0), (4096, 0), (4097, 4),
+                                     (8193, 6), (16_777_223, 8194)])
+def test_library_status_words(n, words):
+    """Workspace words past the header: none for one tile, else
+    slot_words per tile (a tile of 4,096 and 2 words a tile here)."""
+    assert _kernels.Library(None, 4096, 2).status_words(n) == words
+
+
+def test_cpu_scan_needs_no_kernel_library(monkeypatch):
+    """A CPU tensor takes the plain version and never loads the library."""
+    def no_library():
+        raise AssertionError("the CPU path loaded the kernel library")
+    monkeypatch.setattr(tscan, "_library", no_library)
+    x = _input("int32", 9000, seed=4)
+    for op, exclusive in CASES:
+        got = tscan.scan(_to_torch(x), op, exclusive).numpy()
+        _check(got, _numpy_scan(x, op, exclusive), "int32")
+
+
+def _cuda_check(got: torch.Tensor, x: torch.Tensor, op: str, exclusive: bool,
+                dtype: str):
+    _check(got.cpu().numpy(),
+           tscan.scan_reference(x.cpu(), op, exclusive).numpy(), dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("op,exclusive", CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_kernel_matches_plain_on_cuda(dtype, op, exclusive):
+def test_kernel_matches_plain_on_cuda(dtype, op, exclusive, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the scan kernel has no CPU mode")
-    for n in (1, 1000, 2048, 2049, 327_680, 2 ** 22 + 7):
+    kern = tscan.build()
+    tile = kern.tile
+    # one tile, one tile plus one, an exact multiple, the rebin's lanes,
+    # and many tiles (from 2^20 on the kernel takes tiles twice as large),
+    # all on signed input
+    for n in (1, 1000, tile, tile + 1, 3 * tile, 327_680, 2 ** 20 - 1,
+              2 ** 20 + 2 * tile + 1, 2 ** 22 + 7, 16_777_223):
         x = _to_torch(_input(dtype, n, seed=n))
         before = tscan.LAUNCHES
         got = tscan.scan(x.cuda(), op, exclusive)
         torch.cuda.synchronize()
         assert tscan.LAUNCHES == before + 1
-        _check(got.cpu().numpy(), tscan.scan_reference(x, op,
-                                                       exclusive).numpy(),
-               dtype)
+        _cuda_check(got, x, op, exclusive, dtype)
+    # back to back with no sync, same and growing sizes: a stale status or
+    # ticket of the call before would show
+    xs = [_to_torch(_input(dtype, n, seed=100 + k)).cuda() for k, n in
+          enumerate((100_000, 100_000, 300_000, 1_000_000, 40_000))]
+    outs = [tscan.scan(x, op, exclusive) for x in xs]
+    for x, got in zip(xs, outs):
+        _cuda_check(got, x, op, exclusive, dtype)
+    # views at 1, 2 and 3 elements: not 16-byte aligned
+    base = _to_torch(_input(dtype, 327_680 + 8, seed=5)).cuda()
+    for off in (1, 2, 3):
+        x = base[off:off + 327_680 + 5]
+        assert x.data_ptr() % 16 != 0
+        _cuda_check(tscan.scan(x, op, exclusive), x, op, exclusive, dtype)
+    # two streams at once, each with its own workspace
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    x1 = _to_torch(_input(dtype, 2 ** 20 + 3, seed=21)).cuda()
+    x2 = _to_torch(_input(dtype, 2 ** 20 + 5, seed=22)).cuda()
+    s1.wait_stream(torch.cuda.current_stream())
+    s2.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s1):
+        g1 = tscan.scan(x1, op, exclusive)
+    with torch.cuda.stream(s2):
+        g2 = tscan.scan(x2, op, exclusive)
+    torch.cuda.synchronize()
+    _cuda_check(g1, x1, op, exclusive, dtype)
+    _cuda_check(g2, x2, op, exclusive, dtype)
+    # across the epoch's wrap: a workspace that starts 2 below it, full of
+    # stale statuses of epochs 0-2; two small calls, the second of which
+    # wraps the epoch and must zero them, then three large ones that would
+    # read any it left as predecessors
+    monkeypatch.setattr(tscan, "WORKSPACE", _kernels.Workspace(
+        epoch=_kernels.EPOCH_LIMIT - 2, stale=True))
+    sizes = (3 * tile, 2 * tile + 1, 327_680, 327_680 - 999, 300_000)
+    xs = [_to_torch(_input(dtype, n, seed=30 + k)).cuda()
+          for k, n in enumerate(sizes)]
+    stream = torch.cuda.current_stream().cuda_stream
+    ws = tscan.WORKSPACE.get(xs[0].device, stream,
+                             kern.status_words(max(sizes)))
+    assert ws[_kernels.HEADER_WORDS:].any()
+    for k, x in enumerate(xs):
+        _cuda_check(tscan.scan(x, op, exclusive), x, op, exclusive, dtype)
+        if k == 1:
+            assert _kernels.Workspace.header(ws) == (0, 0, 0)
+            assert not ws[_kernels.HEADER_WORDS:].any()
+    assert tscan.WORKSPACE.get(xs[0].device, stream, 1) is ws
+    assert _kernels.Workspace.header(ws) == (0, 0, 3)
     if dtype == "float32" and op != "add":
         # leading identities across a tile boundary: +-inf must survive
         lead = -np.inf if op == "max" else np.inf
-        x = _to_torch(_input(dtype, 5000, seed=1))
-        x[:3000] = lead
+        x = _to_torch(_input(dtype, 3 * tile, seed=1))
+        x[:tile + 1000] = lead
         got = tscan.scan(x.cuda(), op).cpu()
         np.testing.assert_array_equal(got.numpy(),
                                       tscan.scan_reference(x, op).numpy())
-        assert got[2999] == lead
+        assert got[tile + 999] == lead

@@ -12,18 +12,20 @@ such sweeps give the Karras topology of the LBVH
 ``csrc/nse.cu`` or raises; it never falls back to the plain version.
 
 Counterpart of ``zpc_tpu/ops/nse_pallas.py:nse_pallas`` (same contract and
-sentinel), which needs 4,096 <= g < 2^24; this one takes any 1 <= g < 2^24.
+sentinel), which needs 4,096 <= g < 2^24; this one takes any 1 <= g < 2^24,
+in one launch (a single pass with decoupled look-back).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import _kernels
 
-__all__ = ["NONE", "LAUNCHES", "nse", "nse_reference", "build"]
+__all__ = ["NONE", "LAUNCHES", "WORKSPACE", "nse", "nse_reference", "build"]
 
 NONE = -(1 << 30)
 MAX_G = 1 << 24           # positions must fit 24 bits: (j << 6) < 2^30
@@ -32,6 +34,10 @@ _CHUNK = 8192             # positions per step of the plain version
 LAUNCHES = 0
 """Number of calls that launched the CUDA kernel (one per :func:`nse` on a
 CUDA tensor; the plain version never counts)."""
+
+WORKSPACE = _kernels.Workspace()
+"""The look-back scratch of every call on more than one tile, per (device,
+stream), sized by the layout ``csrc/nse.cu`` reports."""
 
 
 def _check(d: torch.Tensor) -> None:
@@ -68,30 +74,33 @@ def nse_reference(d: torch.Tensor, strict: bool = False) -> torch.Tensor:
         f = torch.cummax(torch.maximum(p_excl, carry[:, None]), dim=0).values
         w = dc - (1 if strict else 0)
         sel = torch.gather(f, 0, w.clamp(0, 63).long()[None, :])[0]
-        out.append(torch.where((w >= 0) & (w <= 63), sel, none))
+        # a value outside [0, 63] gets NONE, as it never answers
+        inside = (dc >= 0) & (dc <= 63) & (w >= 0)
+        out.append(torch.where(inside, sel, none))
         carry = torch.maximum(carry, p[:, -1])
     return torch.cat(out)[:g]
 
 
-def _library() -> ctypes.CDLL:
+@functools.cache
+def _library() -> _kernels.Library:
     lib = _kernels.load("nse")
-    lib.zpc_nse_segment.argtypes = []
-    lib.zpc_nse_segment.restype = ctypes.c_int
     lib.zpc_nse.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                            ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_void_p]
     lib.zpc_nse.restype = ctypes.c_int
-    return lib
+    return _kernels.Library(lib, lib.zpc_nse_tile(), lib.zpc_nse_slot_words())
 
 
-def build() -> None:
-    """Compile (if needed) and load the kernel library."""
-    _library()
+def build() -> _kernels.Library:
+    """Compile (if needed) and load the kernel library; returns it with
+    its workspace layout."""
+    return _library()
 
 
 def nse(d: torch.Tensor, strict: bool = False) -> torch.Tensor:
     """Packed nearest-smaller-element of a 1-D int32 tensor with values in
     [1, 63]; see the module docstring.  CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    CUDA tensors launch the kernel, one launch per call."""
     global LAUNCHES
     _check(d)
     if d.device.type == "cpu":
@@ -101,17 +110,14 @@ def nse(d: torch.Tensor, strict: bool = False) -> torch.Tensor:
     if not d.is_contiguous():
         raise ValueError("nse kernel needs a contiguous tensor")
     g = d.numel()
-    lib = _library()
-    nseg = -(-g // lib.zpc_nse_segment())
+    kern = _library()
+    dev = d.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty_like(d)
-    table = torch.empty((64 * nseg if nseg > 1 else 0,), dtype=torch.int32,
-                        device=d.device)
-    with torch.cuda.device(d.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.zpc_nse(d.data_ptr(), out.data_ptr(),
-                          table.data_ptr() if nseg > 1 else None, g,
-                          int(strict), stream)
-    if err != 0:
-        raise RuntimeError(f"nse kernel launch failed: cudaError_t {err}")
+    words = kern.status_words(g)
+    ws = WORKSPACE.get(dev, stream, words) if words else None
+    _kernels.launch("nse", kern.lib.zpc_nse, dev, d.data_ptr(),
+                    out.data_ptr(), None if ws is None else ws.data_ptr(),
+                    0 if ws is None else ws.numel(), g, int(strict), stream)
     LAUNCHES += 1
     return out

@@ -8,18 +8,20 @@ falls back to the plain version.
 Counterpart of ``zpc_tpu/ops/scan_pallas.py:scan_pallas``: the same op set
 (add, max, min, inclusive; exclusive add with zero start), the same dtypes
 (int32, uint32, float32) and the same mod-2^32 wrap for integer add.  The
-TPU kernel needs n >= 131,072 (its chunk); this one takes any n >= 1.
+TPU kernel needs n >= 131,072 (its chunk); this one takes any n >= 1, in one
+launch (a single-pass chained scan with decoupled look-back).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .. import _kernels
 
-__all__ = ["OPS", "LAUNCHES", "scan", "scan_reference"]
+__all__ = ["OPS", "LAUNCHES", "WORKSPACE", "scan", "scan_reference", "build"]
 
 OPS = ("add", "max", "min")
 _OPCODE = {"add": 0, "max": 1, "min": 2}
@@ -28,6 +30,10 @@ _DTYPE = {torch.int32: 0, torch.uint32: 1, torch.float32: 2}
 LAUNCHES = 0
 """Number of calls that launched the CUDA kernel (one per :func:`scan` on a
 CUDA tensor; the plain version never counts)."""
+
+WORKSPACE = _kernels.Workspace()
+"""The look-back scratch of every call on more than one tile, per (device,
+stream), sized by the layout ``csrc/scan.cu`` reports."""
 
 
 def _check(x: torch.Tensor, op: str, exclusive: bool) -> None:
@@ -67,27 +73,29 @@ def scan_reference(x: torch.Tensor, op: str = "add",
     return r.to(x.dtype)
 
 
-def _library() -> ctypes.CDLL:
+@functools.cache
+def _library() -> _kernels.Library:
     lib = _kernels.load("scan")
-    lib.zpc_scan_tile.argtypes = []
-    lib.zpc_scan_tile.restype = ctypes.c_int
     lib.zpc_scan.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                             ctypes.c_void_p, ctypes.c_longlong,
+                             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_int, ctypes.c_void_p]
     lib.zpc_scan.restype = ctypes.c_int
-    return lib
+    return _kernels.Library(lib, lib.zpc_scan_tile(),
+                            lib.zpc_scan_slot_words())
 
 
-def build() -> None:
-    """Compile (if needed) and load the kernel library."""
-    _library()
+def build() -> _kernels.Library:
+    """Compile (if needed) and load the kernel library; returns it with
+    its workspace layout."""
+    return _library()
 
 
 def scan(x: torch.Tensor, op: str = "add",
          exclusive: bool = False) -> torch.Tensor:
     """Inclusive scan of a 1-D tensor for op in add/max/min; exclusive scan
     (zero start) for add.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    launch the kernel, one launch per call."""
     global LAUNCHES
     _check(x, op, exclusive)
     if x.device.type == "cpu":
@@ -99,19 +107,15 @@ def scan(x: torch.Tensor, op: str = "add",
     n = x.numel()
     if n == 0:
         raise ValueError("scan kernel needs n >= 1")
-    lib = _library()
-    tile = lib.zpc_scan_tile()
-    tiles = -(-n // tile)
+    kern = _library()
+    dev = x.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty_like(x)
-    partial = torch.empty((tiles if tiles > 1 else 0,), dtype=x.dtype,
-                          device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.zpc_scan(x.data_ptr(), out.data_ptr(),
-                           partial.data_ptr() if tiles > 1 else None, n,
-                           _DTYPE[x.dtype], _OPCODE[op], int(exclusive),
-                           stream)
-    if err != 0:
-        raise RuntimeError(f"scan kernel launch failed: cudaError_t {err}")
+    words = kern.status_words(n)
+    ws = WORKSPACE.get(dev, stream, words) if words else None
+    _kernels.launch("scan", kern.lib.zpc_scan, dev, x.data_ptr(),
+                    out.data_ptr(), None if ws is None else ws.data_ptr(),
+                    0 if ws is None else ws.numel(), n, _DTYPE[x.dtype],
+                    _OPCODE[op], int(exclusive), stream)
     LAUNCHES += 1
     return out
