@@ -2,9 +2,11 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Two paths run at full width: the explicit-MPM elastic block and the LBVH
-broad phase.  Phases (each prints its results; a failed check raises and
-the script exits non-zero; nothing is caught):
+Three paths run at full width: the explicit-MPM elastic block, the LBVH
+broad phase and the weakly compressible dam break; the four materials of
+examples/materials.py run at their own size.  Phases (each prints its
+results; a failed check raises and the script exits non-zero; nothing is
+caught):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    fails when no CUDA device is visible;
@@ -44,10 +46,27 @@ the script exits non-zero; nothing is caught):
    integer for integer;
 9. LBVH numbers at 1M: build and its layers, topology alone,
    complete-tree build, escape walk, exact query and its join, and the
-   counts-only sorted query.
+   counts-only sorted query;
+10. dam break at full width: the 262,144-particle scene of bench_fluid
+   (bins derived from n), bin_fluid_state, 100 warm-up steps, the bench's
+   window of 20 steps best of 3 (ms/step and particle-steps/s), then the
+   collapse on until 3 rebins have fired in the chain (or 3,000 steps),
+   each rebin timed; every scan replayed against the plain version; the
+   gates: no overflow, finite columns, particle mass unchanged, grid mass
+   within 1e-4, J >= j_clamp, every particle in the tank within 3 cells,
+   a rebin of the final state equal to the CPU's, at least one rebin;
+11. fluid card against CPU: the 4,096-particle dam break for 240 steps on
+   CUDA and on the CPU (needs_rebin history, x, v, J);
+12. materials: jello, snow, sand (elastic binned path, the plastic ones
+   with the Jp column) and fluid (fluid_binned2) at 32,768 particles for
+   200 steps each, with the gates of tests/test_materials.py; snow
+   pre-compressed at 4,096 particles for 50 steps on the card against the
+   CPU (x, F, Jp within 1e-5 plus the CPU's own spread over summation
+   order), and Jp must move.
 
-The last two lines are the kernel record and the contract line
-``{"ok": true, "device": {...}}``.
+The scan's launches in the kernel record are those of phases 4, 10 and 12
+(a line before gives them per path).  The last two lines are the kernel
+record and the contract line ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -75,6 +94,9 @@ from zpc_tpu_torch.containers import bvh as bvh_mod  # noqa: E402
 from zpc_tpu_torch.ops import nse as nse_op  # noqa: E402
 from zpc_tpu_torch.ops import scan as scan_op  # noqa: E402
 from zpc_tpu_torch.parallel import primitives  # noqa: E402
+from zpc_tpu_torch.sim import fluid as fl  # noqa: E402
+from zpc_tpu_torch.sim import fluid_binned2 as fb  # noqa: E402
+from zpc_tpu_torch.sim import mpm as mpm_mod  # noqa: E402
 from zpc_tpu_torch.sim import mpm_binned2 as b2  # noqa: E402
 
 N_MAIN, DX_MAIN, CHAIN = 262_144, 1.0 / 128, 720
@@ -94,6 +116,18 @@ WALK_QUERIES = 16_384
 # 1M build's gap count, and the largest allowed
 NSE_SIZES = (1, 63, 4_096, 4_096 + 1_234, 8_192, 8_193, 24_576, N_BVH - 1,
              (1 << 24) - 1)
+# the dam break (benchmarks/run_all.py bench_fluid): warm-up, the bench's
+# window, and the collapse run on until REBINS_WANT rebins or MAX_COLLAPSE
+# steps; the small fluid run for the card against the CPU
+N_FLUID, FLUID_WARM, FLUID_WINDOW = 262_144, 100, 20
+REBINS_WANT, MAX_COLLAPSE = 3, 3_000
+N_FLUID_SMALL, FLUID_SMALL_STEPS = 4_096, 240
+TOL_FLUID = dict(x=1e-5, v=2e-4, J=1e-5)
+# the materials of examples/materials.py at their own size (32,768
+# particles fill 283 bins) and the snow run held against the CPU
+N_MAT, DX_MAT, MAT_STEPS = 32_768, 1.0 / 64, 200
+CFG_MAT = b2.BinnedConfig2(bins_capacity=384)
+N_SNOW, SNOW_STEPS = 4_096, 50
 HBM_BYTES_PER_MS = 3.35e12 / 1e3     # H100 SXM HBM3 rate (data sheet)
 _WINDOW = "timed calls"               # the profiler window of device_split
 
@@ -862,6 +896,251 @@ def lbvh_numbers(bvh, lo, hi, c, card):
     return ms
 
 
+def _fluid_gates(sim, out, last, m0, n, cfg, what):
+    """The fluid path's physics gates on its final bin state ``out`` and
+    the last step's state ``last``."""
+    check(not bool(out.overflow), f"{what}: no overflow")
+    check(bool(torch.isfinite(out.cols).all()), f"{what}: every column "
+                                                f"finite")
+    cols = _alive_cols(out)
+    check(cols.shape[0] == n, f"{what}: every particle alive in bin order")
+    lay = fb._LAY
+    m1 = cols[:, lay["M"]].double().sum().item()
+    check(abs(m1 - m0) <= 1e-9 * m0, f"{what}: particle mass unchanged "
+                                     f"({m1:.9g})")
+    gmass = last.grid.data["m"].double().sum().item()
+    pmass = _alive_cols(last)[:, lay["M"]].double().sum().item()
+    check(abs(gmass - pmass) <= 1e-4 * pmass,
+          f"{what}: grid mass {gmass:.9g} within 1e-4 of particle mass on "
+          f"the last step")
+    jmin = cols[:, lay["J"]].min().item()
+    check(jmin >= 0.1, f"{what}: J >= j_clamp 0.1 (min {jmin:.6f})")
+    dx = float(out.grid.dx)
+    x = cols[:, 0:3]
+    lo, hi = x.min().item(), x.max().item()
+    check(lo >= 0.02 - 3 * dx and hi <= 0.98 + 3 * dx,
+          f"{what}: every particle inside the tank within 3 cells "
+          f"(x in [{lo:.6f}, {hi:.6f}])")
+    cpu = torch.device("cpu")
+    reb = b2.rebin_adaptive(sim, out, cfg)
+    ref = b2.rebin_adaptive(_to_device(sim, cpu), _to_device(out, cpu), cfg)
+    _assert_bins_equal(reb, ref)
+    check(not bool(reb.overflow), f"{what}: a rebin of the final state on "
+                                  f"the card = the CPU's, no overflow")
+
+
+def dam_break_path(dev, card):
+    phase("10 dam break at full width")
+    sim, st, dt, cfg = scenes.dam_break(N_FLUID, dev)
+    print(f"  {N_FLUID} particles, dx = 1/128, dt = {dt}, BinnedConfig2("
+          f"bins_capacity={cfg.bins_capacity}, block_capacity="
+          f"{cfg.block_capacity}) derived from n", flush=True)
+    m0 = st.particles["m"].double().sum().item()
+    count = {"rebins": 0, "window_rebins": 0}
+    last = {}
+
+    def step(s):
+        last["st"] = fb.explicit_fluid_step_binned2(sim, s, dt, cfg,
+                                                    rebin=False)
+        return last["st"]
+
+    def rebin(s):
+        count["rebins"] += 1
+        return b2.rebin_adaptive(sim, s, cfg)
+
+    def window(s):
+        before = count["rebins"]
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        s = b2.adaptive_chain(step, rebin, s, FLUID_WINDOW)
+        e1.record()
+        torch.cuda.synchronize()
+        check(not bool(s.overflow), "timed window: no overflow")
+        count["window_rebins"] += count["rebins"] - before
+        return e0.elapsed_time(e1) / FLUID_WINDOW
+
+    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    with recorded_scans() as calls:
+        bst = fb.bin_fluid_state(sim, st, cfg)
+        torch.cuda.synchronize()
+        launches_bin = scan_op.LAUNCHES
+        warm = b2.adaptive_chain(step, rebin, bst, FLUID_WARM)
+        torch.cuda.synchronize()
+        check(not bool(warm.overflow), f"{FLUID_WARM} warm-up steps: no "
+                                       f"overflow")
+        times = [window(warm) for _ in range(3)]
+        ms = min(times)
+        print(f"  bench window: {FLUID_WINDOW} steps from the state after "
+              f"{FLUID_WARM} ({count['rebins'] - count['window_rebins']} "
+              f"rebins in the warm-up, {count['window_rebins'] // 3} in "
+              f"each window), best of 3: {ms:.4f} ms/step = "
+              f"{N_FLUID / ms / 1e3:.4f} M particle-steps/s (windows "
+              f"{', '.join(f'{t:.4f}' for t in times)} ms/step; {card})",
+              flush=True)
+        warm_rebins = count["rebins"] - count["window_rebins"]
+        # the collapse, on from the warm state, until REBINS_WANT rebins
+        # have fired in the chain (or MAX_COLLAPSE steps); a rebin that
+        # overflows stops it at the last state that fits
+        out, cut = warm, None
+        steps, rebins, reb_ms = FLUID_WARM, warm_rebins, []
+        while rebins < REBINS_WANT and steps < MAX_COLLAPSE:
+            nxt = step(out)
+            steps += 1
+            if bool(nxt.needs_rebin):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                nxt = b2.rebin_adaptive(sim, nxt, cfg)
+                e1.record()
+                torch.cuda.synchronize()
+                reb_ms.append(e0.elapsed_time(e1))
+                rebins += 1
+            if bool(nxt.overflow):
+                cut = steps
+                break
+            out = nxt
+        torch.cuda.synchronize()
+    launches = scan_op.LAUNCHES
+    check(nse_op.LAUNCHES == 0, "the fluid path launched no NSE kernel")
+    if cut is not None:
+        print(f"  the collapse overflowed at step {cut}: stopped at the last "
+              f"state that fits, step {cut - 1}", flush=True)
+    print(f"  chain: {rebins} rebins in {steps} steps ({warm_rebins} in the "
+          f"warm-up; the collapse's took "
+          f"{', '.join(f'{t:.4f}' for t in reb_ms) or 'none'} ms each; "
+          f"{card}); scan launches {launches}: {launches_bin} in "
+          f"bin_fluid_state, {launches - launches_bin} in the chain and the "
+          f"timed windows", flush=True)
+    check(launches_bin > 0, "bin_fluid_state launched the scan kernel")
+    check(rebins >= 1, f"at least one rebin fired in the chain ({rebins}); "
+                       f"without one the scan kernel never ran inside it")
+    check(launches > launches_bin, "the chain's rebins launched the scan "
+                                   "kernel")
+    check(len(calls) == launches, f"{len(calls)} scans recorded")
+    sizes = replay_scans(calls)
+    check(True, f"every dam-break scan = plain on the same input, ints "
+                f"exact; (n, op): {sizes}")
+    _fluid_gates(sim, out, last["st"], m0, N_FLUID, cfg, "dam break")
+    rb = cuda_ms(lambda: b2.rebin_adaptive(sim, out, cfg), 10)
+    bs = cuda_ms(lambda: fb.bin_fluid_state(sim, st, cfg), 10)
+    print(f"  rebin of the final state {rb:.4f} ms, bin_fluid_state "
+          f"{bs:.4f} ms (mean of 10; {card})", flush=True)
+    return launches, {"ms_per_step": ms, "pps": N_FLUID / ms * 1e3,
+                      "rebins": rebins, "steps": steps,
+                      "rebin_ms": reb_ms, "launches_bin": launches_bin}
+
+
+def _small_fluid_run(dev, steps):
+    sim, st, dt, cfg = scenes.dam_break(N_FLUID_SMALL, dev)
+    hist = []
+
+    def step(s):
+        s = fb.explicit_fluid_step_binned2(sim, s, dt, cfg, rebin=False)
+        hist.append(bool(s.needs_rebin))
+        return s
+    out = b2.adaptive_chain(step, lambda s: b2.rebin_adaptive(sim, s, cfg),
+                            fb.bin_fluid_state(sim, st, cfg), steps)
+    return fb.unbin_fluid_state(out, st), out, hist
+
+
+def fluid_card_vs_cpu(dev):
+    phase("11 fluid card against CPU, same port")
+    g, gb, ghist = _small_fluid_run(dev, FLUID_SMALL_STEPS)
+    c, cb, chist = _small_fluid_run(torch.device("cpu"), FLUID_SMALL_STEPS)
+    check(ghist == chist, f"same needs_rebin history ({sum(ghist)} rebins "
+                          f"in {FLUID_SMALL_STEPS} steps)")
+    check(not bool(gb.overflow) and not bool(cb.overflow), "no overflow")
+    check(torch.equal(gb.grid.transform.matrix.cpu(),
+                      cb.grid.transform.matrix), "same recentred origin")
+    for k in ("x", "v", "J"):
+        err = (g.particles[k].cpu() - c.particles[k]).abs().max().item()
+        check(err <= TOL_FLUID[k], f"{k} max abs diff {err:.3g} <= "
+                                   f"{TOL_FLUID[k]}")
+
+
+def _material_run(material, dev, steps):
+    """``steps`` binned steps of one material of examples/materials.py
+    (fluid as a J state on fluid_binned2); returns (state in original
+    order, sim, dt)."""
+    sim, st, dt = scenes.materials(material, N_MAT, DX_MAT, dev)
+    if material == "fluid":
+        st = fl.make_fluid_state(st.particles["x"], dx=DX_MAT, device=dev,
+                                 block_capacity=st.grid.block_capacity)
+        bst = fb.bin_fluid_state(sim, st, CFG_MAT)
+        out = b2.adaptive_chain(
+            lambda s: fb.explicit_fluid_step_binned2(sim, s, dt, CFG_MAT,
+                                                     rebin=False),
+            lambda s: b2.rebin_adaptive(sim, s, CFG_MAT), bst, steps)
+        check(not bool(out.overflow), f"{material}: no overflow")
+        return fb.unbin_fluid_state(out, st)
+    out = b2.adaptive_chain(
+        lambda s: b2.explicit_step_binned2(sim, s, dt, CFG_MAT, rebin=False),
+        lambda s: b2.rebin_adaptive(sim, s, CFG_MAT),
+        b2.bin_state(sim, st, CFG_MAT), steps)
+    check(not bool(out.overflow), f"{material}: no overflow")
+    return b2.unbin_state(out, st)
+
+
+def _snow_run(where, reverse):
+    """The snow scene at N_SNOW particles, pre-compressed to F = 0.9 I (so
+    the projection moves volume into Jp from the first step), SNOW_STEPS
+    binned steps; ``reverse`` feeds the particles in reverse order (the
+    same physics, another summation order), the result comes back in the
+    scene's order."""
+    sim, st, dt = scenes.materials("snow", N_SNOW, 1.0 / 32, where)
+    F0 = 0.9 * torch.eye(3, device=where).expand(N_SNOW, 3, 3)
+    p = st.particles.update(F=F0.clone())
+    if reverse:
+        p = p.update(**{k: v.flip(0) for k, v in p.channels.items()})
+    st = mpm_mod.MPMState(p, st.grid, st.max_vel)
+    cfg = b2.BinnedConfig2(bins_capacity=64)
+    out = b2.adaptive_chain(
+        lambda s: b2.explicit_step_binned2(sim, s, dt, cfg, rebin=False),
+        lambda s: b2.rebin_adaptive(sim, s, cfg), b2.bin_state(sim, st, cfg),
+        SNOW_STEPS)
+    check(not bool(out.overflow), f"snow {N_SNOW} on {where}: no overflow")
+    ch = b2.unbin_state(out, st).particles.channels
+    return {k: (v.flip(0) if reverse else v).cpu() for k, v in ch.items()}
+
+
+def materials_path(dev, card):
+    phase("12 materials")
+    scan_op.LAUNCHES = 0
+    for material in scenes.MATERIALS:
+        t0 = time.perf_counter()
+        out = _material_run(material, dev, MAT_STEPS)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        x, v = out.particles["x"], out.particles["v"]
+        check(bool(torch.isfinite(x).all() and torch.isfinite(v).all()),
+              f"{material}: {N_MAT} particles, {MAT_STEPS} steps in "
+              f"{sec:.3f} s ({card}): finite")
+        vmax = v.abs().max().item()
+        check(vmax < 50.0, f"{material}: |v| max {vmax:.4f} < 50")
+        ymin = x[:, 1].min().item()
+        check(ymin > 0.1 - 3 * DX_MAT, f"{material}: nothing more than 3 "
+                                       f"cells below the ground (y min "
+                                       f"{ymin:.6f})")
+    launches = scan_op.LAUNCHES
+    print(f"  scan launches over the four materials: {launches}",
+          flush=True)
+    check(launches > 0, "the materials launched the scan kernel")
+    g = _snow_run(dev, False)
+    c = _snow_run(torch.device("cpu"), False)
+    c_rev = _snow_run(torch.device("cpu"), True)
+    moved = (g["Jp"] - 1.0).abs().max().item()
+    check(moved > 1e-3, f"snow: Jp moved (max |Jp - 1| {moved:.6f})")
+    for k in ("x", "F", "Jp"):
+        spread = (c_rev[k] - c[k]).abs().max().item()
+        err = (g[k] - c[k]).abs().max().item()
+        check(err <= 1e-5 + spread,
+              f"snow {N_SNOW} card against CPU, {SNOW_STEPS} steps: {k} max "
+              f"abs diff {err:.3g} <= 1e-5 + the CPU's own spread over "
+              f"summation order {spread:.3g}")
+    return launches
+
+
 def main():
     card = environment()
     dev = zpc_tpu_torch.cuda_device(0)
@@ -874,6 +1153,15 @@ def main():
     bvh, lo, hi, c, nse_launches = lbvh_path(dev, card)
     lbvh_card_vs_cpu(dev)
     lbvh_numbers(bvh, lo, hi, c, card)
+    fluid_launches, _ = dam_break_path(dev, card)
+    fluid_card_vs_cpu(dev)
+    mat_launches = materials_path(dev, card)
+    per_path = {"elastic block (phase 4)": launches,
+                "dam break (phase 10)": fluid_launches,
+                "materials (phase 12)": mat_launches}
+    print(f"  scan launches per path: {per_path}; total "
+          f"{sum(per_path.values())}", flush=True)
+    launches = sum(per_path.values())
     scan_t, lib_t = times[327_680], times["library"]
     # ms: back-to-back time per call; device_ms: the profiler's device time
     # per call.  bound: each input read once and each output written once,

@@ -1,16 +1,22 @@
-"""Device-time profile of the port's main path on one NVIDIA GPU.
+"""Device-time profile of one of the port's paths on one NVIDIA GPU.
 
-Run from the repository root:  python3 tools/profile_torch_step.py
+Run from the repository root:
 
-Builds the 262,144-particle elastic block (dx = 1/128) with
-BinnedConfig2(bins_capacity=2560, block_capacity=2048), warms up, then
-traces 10 steps of explicit_step_binned2 and one rebin_adaptive with
-torch.profiler.  Prints the card's name and power limit, the wall time and
-device time of the window (so the device's busy share), and the ops with
-the most device time (each op's own kernels); the full table goes to
-chiprun_out/profile_torch_step.txt.
+    python3 tools/profile_torch_step.py                     # elastic block
+    python3 tools/profile_torch_step.py --scene dam_break   # dam break
+
+``block`` (the default) builds the 262,144-particle elastic block
+(dx = 1/128) with BinnedConfig2(bins_capacity=2560, block_capacity=2048);
+``dam_break`` the 262,144-particle dam break of bench_fluid with its bins
+derived from n, advanced 100 steps past the release.  Either warms up,
+then traces 10 steps and one rebin_adaptive with torch.profiler.  Prints
+the card's name and power limit, the wall time and device time of the
+window (so the device's busy share), and the ops with the most device
+time (each op's own kernels); the full table goes to
+chiprun_out/profile_torch_step_<scene>.txt.
 """
 
+import argparse
 import os
 import subprocess
 import sys
@@ -25,13 +31,41 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import zpc_tpu_torch  # noqa: E402
 from zpc_tpu_torch import scenes  # noqa: E402
+from zpc_tpu_torch.sim import fluid_binned2 as fb  # noqa: E402
 from zpc_tpu_torch.sim import mpm_binned2 as b2  # noqa: E402
 
-N, DX, STEPS = 262_144, 1.0 / 128, 10
-CFG = b2.BinnedConfig2(bins_capacity=2560, block_capacity=2048)
+N, DX, STEPS, FLUID_WARM = 262_144, 1.0 / 128, 10, 100
+
+
+def _block(dev):
+    """(step, rebin, binned state) of the elastic block."""
+    cfg = b2.BinnedConfig2(bins_capacity=2560, block_capacity=2048)
+    sim, st, dt = scenes.mpm_block(N, DX, dev)
+    return (lambda s: b2.explicit_step_binned2(sim, s, dt, cfg, rebin=False),
+            lambda s: b2.rebin_adaptive(sim, s, cfg),
+            b2.bin_state(sim, st, cfg))
+
+
+def _dam_break(dev):
+    """(step, rebin, binned state 100 steps into the collapse) of the dam
+    break."""
+    sim, st, dt, cfg = scenes.dam_break(N, dev)
+
+    def step(s):
+        return fb.explicit_fluid_step_binned2(sim, s, dt, cfg, rebin=False)
+
+    def rebin(s):
+        return b2.rebin_adaptive(sim, s, cfg)
+    bst = b2.adaptive_chain(step, rebin, fb.bin_fluid_state(sim, st, cfg),
+                            FLUID_WARM)
+    return step, rebin, bst
 
 
 def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--scene", choices=("block", "dam_break"),
+                    default="block")
+    scene = ap.parse_args().scene
     if not torch.cuda.is_available():
         raise RuntimeError("this probe needs an NVIDIA GPU")
     card = subprocess.run(
@@ -40,14 +74,13 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = zpc_tpu_torch.cuda_device(0)
-    sim, st, dt = scenes.mpm_block(N, DX, dev)
-    bst = b2.bin_state(sim, st, CFG)
+    step, rebin, bst = (_block if scene == "block" else _dam_break)(dev)
 
     def window(s):
         for _ in range(STEPS):
-            s = b2.explicit_step_binned2(sim, s, dt, CFG, rebin=False)
+            s = step(s)
             bool(s.needs_rebin)
-        return b2.rebin_adaptive(sim, s, CFG)
+        return rebin(s)
 
     window(bst)                                  # warm-up and build
     torch.cuda.synchronize()
@@ -66,8 +99,8 @@ def main():
         raise RuntimeError("the profiler saw no device time: time with "
                            "CUDA events instead")
     ops = [e for e in ev if e.device_type == DeviceType.CPU]
-    print(f"{STEPS} steps + 1 rebin: wall {wall * 1e3:.4f} ms, device "
-          f"{device_us / 1e3:.4f} ms, busy share "
+    print(f"{scene}: {STEPS} steps + 1 rebin: wall {wall * 1e3:.4f} ms, "
+          f"device {device_us / 1e3:.4f} ms, busy share "
           f"{device_us / 1e3 / (wall * 1e3):.4f} ({card})", flush=True)
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:15]:
         if e.self_device_time_total <= 0:
@@ -77,7 +110,7 @@ def main():
               f" x{e.count}", flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out",
-                           "profile_torch_step.txt"), "w") as f:
+                           f"profile_torch_step_{scene}.txt"), "w") as f:
         f.write(card + "\n")
         f.write(ev.table(sort_by="self_device_time_total", row_limit=60))
 

@@ -2,8 +2,9 @@
 
 The converters read the JAX package's dataclasses through ``numpy.asarray``
 and class names only, so this module imports no JAX: a caller that holds
-``zpc_tpu`` objects already has JAX loaded.  Only what the explicit MPM main
-path and the LBVH carry is supported; anything else raises.
+``zpc_tpu`` objects already has JAX loaded.  Supported: the explicit MPM
+family (every elastic and plasticity model, FLIP, elastic, plastic and
+fluid states and bin states) and the LBVH; anything else raises.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from .geometry.collider import Collider, ColliderType
 from .geometry.levelset import ComplementLevelSet, Cuboid, HalfSpace
 from .geometry.sparse_grid import SparseGrid
 from .math.transform import Transform
-from .models.constitutive import FixedCorotated
+from .models import constitutive, plasticity
 from .sim.mpm import MPMSim, MPMState
 from .sim.mpm_binned2 import BinnedConfig2, BinState
 
@@ -47,23 +48,38 @@ def _levelset_from_jax(ls, device):
     raise NotImplementedError(f"level set {kind} is not ported")
 
 
+def _same_fields(obj, module, device):
+    """The port's class of ``obj``'s name in ``module``, built field for
+    field: arrays become tensors on ``device``, static fields (ints,
+    bools) stay as they are."""
+    name = type(obj).__name__
+    cls = getattr(module, name, None)
+    if cls is None or name not in module.__all__:
+        raise NotImplementedError(f"{name} is not ported")
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(obj, f.name)
+        kw[f.name] = (v if isinstance(v, (bool, int))
+                      else _tensor(v, device))
+    return cls(**kw)
+
+
 def sim_from_jax(sim, device: torch.device) -> MPMSim:
-    """``zpc_tpu.sim.mpm.MPMSim`` -> :class:`MPMSim`: the model's mu/lam,
-    gravity and the colliders' shapes, kinds and friction."""
-    if type(sim.model).__name__ != "FixedCorotated":
-        raise NotImplementedError(
-            f"model {type(sim.model).__name__} is not ported")
-    if sim.plasticity is not None or sim.flip != 0.0 or sim.order != 2:
-        raise NotImplementedError(
-            "plasticity, FLIP blending and orders other than 2 are not "
-            "ported")
-    model = FixedCorotated(_tensor(sim.model.mu, device),
-                           _tensor(sim.model.lam, device))
+    """``zpc_tpu.sim.mpm.MPMSim`` -> :class:`MPMSim`: the elastic model and
+    the plasticity model field for field, gravity, the colliders' shapes,
+    kinds and friction, and the FLIP blend.  Orders other than 2 raise."""
+    if sim.order != 2:
+        raise NotImplementedError("only quadratic (order 2) B-splines are "
+                                  "ported")
     colliders = tuple(
         Collider(_levelset_from_jax(c.levelset, device),
                  ColliderType(c.kind.value), float(c.friction))
         for c in sim.colliders)
-    return MPMSim(model, _tensor(sim.gravity, device), colliders, sim.order)
+    plastic = (None if sim.plasticity is None
+               else _same_fields(sim.plasticity, plasticity, device))
+    return MPMSim(_same_fields(sim.model, constitutive, device),
+                  _tensor(sim.gravity, device), colliders, plastic,
+                  sim.order, float(sim.flip))
 
 
 def config_from_jax(cfg) -> BinnedConfig2:
@@ -103,10 +119,13 @@ def state_from_jax(state, device: torch.device) -> MPMState:
 
 
 def binstate_from_jax(st, device: torch.device) -> BinState:
-    """``zpc_tpu.sim.mpm_binned2.BinState`` (3-D, no Jp column) ->
+    """``zpc_tpu.sim.mpm_binned2.BinState`` (3-D: the 18-column fluid, the
+    26-column elastic or the 27-column plastic layout) ->
     :class:`BinState`."""
-    if st.cols.shape[1] != 26:
-        raise NotImplementedError("only the 26-column 3-D layout is ported")
+    if st.grid.dim != 3 or st.cols.shape[1] not in (18, 26, 27):
+        raise NotImplementedError(
+            f"only the 3-D 18-, 26- and 27-column layouts are ported, got "
+            f"{st.grid.dim}-D with {st.cols.shape[1]} columns")
     return BinState(_tensor(st.cols, device), _tensor(st.pid, device),
                     _grid_from_jax(st.grid, device),
                     _tensor(st.max_vel, device), _tensor(st.overflow, device),

@@ -1,13 +1,148 @@
-"""Polar decomposition for the corotated stress (counterpart of
-``polar_newton3x3`` in ``zpc_tpu/math/svd.py``)."""
+"""Small-matrix decompositions (counterpart of ``zpc_tpu/math/svd.py``):
+the symmetric 3x3 eigensolver, the 3x3 SVD and polar decomposition in the
+rotation convention, and the Newton polar factor of the corotated stress.
+
+Every routine is branch-free over batches, as in the JAX package: a fixed
+number of cyclic Jacobi sweeps, compare-swap sorting and ``where`` selects,
+in scalar form (one tensor per matrix entry).  Forward only; the JAX
+package's closed-form ``custom_jvp`` of ``svd3x3`` belongs to the implicit
+solver.  ``torch.linalg.svd`` is not a substitute: it returns non-negative
+singular values with a reflection in U or V, where this convention keeps
+``det U = det V = +1`` and a signed smallest singular value.
+"""
 
 from __future__ import annotations
 
 import torch
 
-from .vecmat import cof3
+from .vecmat import cof3, det3, mm33
 
-__all__ = ["polar_newton3x3"]
+__all__ = ["eigh3x3", "svd3x3", "polar_decomposition", "polar_newton3x3"]
+
+
+def _jacobi_rotation(app, aqq, apq):
+    """Givens (c, s) zeroing the off-diagonal ``apq`` (branch-free)."""
+    tau = (aqq - app) / (2.0 * torch.where(apq == 0.0, 1.0, apq))
+    sgn = torch.where(tau >= 0.0, 1.0, -1.0)     # sign(0) must be 1, not 0
+    t = sgn / (tau.abs() + torch.sqrt(1.0 + tau * tau))
+    t = torch.where(apq == 0.0, 0.0, t)
+    c = 1.0 / torch.sqrt(1.0 + t * t)
+    return c, t * c
+
+
+def _rotate(s, p, q, r):
+    """One Jacobi rotation in the (p, q) plane of the state ``s``: the six
+    unique entries of the symmetric matrix (keys ``pq``) and the nine
+    components of V (keys ``v<col><axis>``); ``r`` is the third index."""
+    def a(i, j):
+        return s[f"{min(i, j)}{max(i, j)}"]
+    app, aqq, apq = a(p, p), a(q, q), a(p, q)
+    apr, aqr = a(p, r), a(q, r)
+    c, sn = _jacobi_rotation(app, aqq, apq)
+    out = dict(s)
+    out[f"{p}{p}"] = c * c * app - 2 * sn * c * apq + sn * sn * aqq
+    out[f"{q}{q}"] = sn * sn * app + 2 * sn * c * apq + c * c * aqq
+    out[f"{min(p, q)}{max(p, q)}"] = torch.zeros_like(apq)
+    out[f"{min(p, r)}{max(p, r)}"] = c * apr - sn * aqr
+    out[f"{min(q, r)}{max(q, r)}"] = sn * apr + c * aqr
+    for ax in "xyz":
+        vp, vq = s[f"v{p}{ax}"], s[f"v{q}{ax}"]
+        out[f"v{p}{ax}"] = c * vp - sn * vq
+        out[f"v{q}{ax}"] = sn * vp + c * vq
+    return out
+
+
+def eigh3x3(A: torch.Tensor, sweeps: int = 6):
+    """Symmetric 3x3 eigendecomposition of ``[..., 3, 3]`` by cyclic Jacobi
+    (sweep order (0,1), (0,2), (1,2)), batched.  Returns (eigenvalues
+    sorted descending ``[..., 3]``, eigenvectors ``[..., 3, 3]`` as
+    columns)."""
+    Ah = 0.5 * (A + A.transpose(-1, -2))
+    one = torch.ones_like(Ah[..., 0, 0])
+    zero = torch.zeros_like(one)
+    s = {f"{i}{j}": Ah[..., i, j] for i in range(3) for j in range(i, 3)}
+    for col in range(3):
+        for k, ax in enumerate("xyz"):
+            s[f"v{col}{ax}"] = one if k == col else zero
+    for _ in range(sweeps):
+        s = _rotate(s, 0, 1, 2)
+        s = _rotate(s, 0, 2, 1)
+        s = _rotate(s, 1, 2, 0)
+
+    # descending sort by a 3-element compare-swap network
+    def cswap(wa, va, wb, vb):
+        swap = wb > wa
+        return (torch.where(swap, wb, wa),
+                tuple(torch.where(swap, b, a) for a, b in zip(va, vb)),
+                torch.where(swap, wa, wb),
+                tuple(torch.where(swap, a, b) for a, b in zip(va, vb)))
+
+    w = [s["00"], s["11"], s["22"]]
+    v = [tuple(s[f"v{c}{ax}"] for ax in "xyz") for c in range(3)]
+    w[0], v[0], w[1], v[1] = cswap(w[0], v[0], w[1], v[1])
+    w[1], v[1], w[2], v[2] = cswap(w[1], v[1], w[2], v[2])
+    w[0], v[0], w[1], v[1] = cswap(w[0], v[0], w[1], v[1])
+    V = torch.stack([torch.stack([v[0][i], v[1][i], v[2][i]], -1)
+                     for i in range(3)], -2)
+    return torch.stack(w, -1), V
+
+
+def svd3x3(A: torch.Tensor, sweeps: int = 6):
+    """Batched 3x3 SVD in the rotation convention: ``A = U diag(s) V^T``
+    with ``det U = det V = +1`` and ``s0 >= s1 >= |s2|``, ``s2`` negative
+    for reflective A.  V from the eigenvectors of A^T A; U by normalising
+    the columns of A V, Gram-Schmidt completing a degenerate second column
+    and crossing the first two for the third; the signed ``s2`` is the
+    third column of A V projected on ``u2``."""
+    _, V = eigh3x3(mm33(A.transpose(-1, -2), A), sweeps)
+    sgn = torch.where(det3(V) < 0, -1.0, 1.0)
+    V = torch.cat([V[..., :, :2], (sgn[..., None] * V[..., :, 2])[..., None]],
+                  -1)
+    B = mm33(A, V)                                   # = U diag(s)
+    eps = 1e-12
+    b0x, b0y, b0z = B[..., 0, 0], B[..., 1, 0], B[..., 2, 0]
+    b1x, b1y, b1z = B[..., 0, 1], B[..., 1, 1], B[..., 2, 1]
+    b2x, b2y, b2z = B[..., 0, 2], B[..., 1, 2], B[..., 2, 2]
+    s0 = torch.sqrt(torch.clamp_min(b0x * b0x + b0y * b0y + b0z * b0z, 0.0))
+    s1 = torch.sqrt(torch.clamp_min(b1x * b1x + b1y * b1y + b1z * b1z, 0.0))
+    inv0 = 1.0 / torch.clamp_min(s0, eps)
+    u0x, u0y, u0z = b0x * inv0, b0y * inv0, b0z * inv0
+    d = b1x * u0x + b1y * u0y + b1z * u0z
+    w1x, w1y, w1z = b1x - d * u0x, b1y - d * u0y, b1z - d * u0z
+    n1 = torch.sqrt(torch.clamp_min(w1x * w1x + w1y * w1y + w1z * w1z, 0.0))
+    # fallback direction for a degenerate second column: any vector
+    # orthogonal to u0, cross(u0, e_x) = (0, u0z, -u0y) or
+    # cross(u0, e_y) = (-u0z, 0, u0x)
+    na = torch.sqrt(u0y * u0y + u0z * u0z)
+    use_ex = na > 1e-6
+    ax = torch.where(use_ex, 0.0, -u0z)
+    ay = torch.where(use_ex, u0z, 0.0)
+    az = torch.where(use_ex, -u0y, u0x)
+    inva = 1.0 / torch.clamp_min(torch.sqrt(ax * ax + ay * ay + az * az), eps)
+    ok1 = n1 > 1e-8
+    inv1 = 1.0 / torch.clamp_min(n1, eps)
+    u1x = torch.where(ok1, w1x * inv1, ax * inva)
+    u1y = torch.where(ok1, w1y * inv1, ay * inva)
+    u1z = torch.where(ok1, w1z * inv1, az * inva)
+    # right-handed completion: det U = +1
+    u2x = u0y * u1z - u0z * u1y
+    u2y = u0z * u1x - u0x * u1z
+    u2z = u0x * u1y - u0y * u1x
+    # degenerate first column (A ~ 0): the identity frame
+    tiny = s0 < 1e-12
+    u = [[u0x, u1x, u2x], [u0y, u1y, u2y], [u0z, u1z, u2z]]
+    U = torch.stack([torch.stack([torch.where(tiny, float(i == j), u[i][j])
+                                  for j in range(3)], -1)
+                     for i in range(3)], -2)
+    s2 = U[..., 0, 2] * b2x + U[..., 1, 2] * b2y + U[..., 2, 2] * b2z
+    return U, torch.stack([s0, s1, s2], -1), V
+
+
+def polar_decomposition(A: torch.Tensor, sweeps: int = 6):
+    """``A = R S`` with R = U V^T a rotation and S = V diag(s) V^T."""
+    U, s, V = svd3x3(A, sweeps)
+    Vt = V.transpose(-1, -2)
+    return mm33(U, Vt), mm33(V, s[..., :, None] * Vt)
 
 
 def polar_newton3x3(F: torch.Tensor, iters: int = 4,

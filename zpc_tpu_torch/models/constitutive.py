@@ -1,6 +1,13 @@
-"""Constitutive models (counterpart of ``zpc_tpu/models/constitutive.py``):
-Lame parameters and the 3-D fixed-corotated Kirchhoff stress that the
-explicit MPM step scatters."""
+"""Constitutive models (counterpart of ``zpc_tpu/models/constitutive.py``),
+3-D and batched over ``[..., 3, 3]`` deformation gradients.
+
+Each model is a frozen dataclass of fp32 scalar (or per-particle) tensors
+with ``psi`` (energy density), ``first_piola`` (P = dpsi/dF) and
+``kirchhoff`` (tau = P F^T, what the MPM transfer scatters).  The
+SVD-based models use :func:`zpc_tpu_torch.math.svd.svd3x3` in its rotation
+convention (signed smallest singular value for inverted elements).  The
+implicit solver's ``dP_dF_action`` is not ported.
+"""
 
 from __future__ import annotations
 
@@ -9,10 +16,12 @@ from typing import Tuple
 
 import torch
 
-from ..math.svd import polar_newton3x3
-from ..math.vecmat import cof3, mm33
+from ..math.svd import polar_newton3x3, svd3x3
+from ..math.vecmat import cof3, det3, mm33
 
-__all__ = ["lame_parameters", "FixedCorotated"]
+__all__ = ["lame_parameters", "bcast_scalar", "ElasticModel", "NeoHookean",
+           "FixedCorotated", "StvkWithHencky", "EquationOfState",
+           "AnisotropicArap"]
 
 
 def lame_parameters(E: float, nu: float) -> Tuple[float, float]:
@@ -22,29 +31,198 @@ def lame_parameters(E: float, nu: float) -> Tuple[float, float]:
     return mu, lam
 
 
+def _f32(v) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def bcast_scalar(v: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Broadcast a scalar-or-per-particle parameter against ``ref``:
+    trailing singleton dims so ``[N]`` parameters align with
+    ``[N, 3, 3]`` tensors."""
+    v = torch.as_tensor(v)
+    extra = ref.dim() - v.dim()
+    return v.reshape(v.shape + (1,) * extra) if extra > 0 else v
+
+
+def _cof(F: torch.Tensor) -> torch.Tensor:
+    """Cofactor matrix ``J F^-T`` (valid for singular F)."""
+    if F.shape[-2:] != (3, 3):
+        raise NotImplementedError("only the 3-D models are ported")
+    return cof3(F)
+
+
 @dataclasses.dataclass(frozen=True)
-class FixedCorotated:
-    """psi = mu |F - R|^2 + lam/2 (J - 1)^2; P = 2 mu (F - R) + lam (J - 1)
-    cof(F).  ``mu``/``lam`` are fp32 scalar tensors."""
+class ElasticModel:
+    """Base: the Lame parameters; subclasses define ``psi`` and
+    ``first_piola``."""
 
     mu: torch.Tensor
     lam: torch.Tensor
 
     @classmethod
     def from_young_poisson(cls, E: float, nu: float, *,
-                           device: torch.device) -> "FixedCorotated":
+                           device: torch.device, **kw) -> "ElasticModel":
         mu, lam = lame_parameters(E, nu)
         return cls(torch.tensor(mu, dtype=torch.float32, device=device),
-                   torch.tensor(lam, dtype=torch.float32, device=device))
+                   torch.tensor(lam, dtype=torch.float32, device=device),
+                   **kw)
+
+    def psi(self, F: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def first_piola(self, F: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
 
     def kirchhoff(self, F: torch.Tensor) -> torch.Tensor:
-        """tau = P F^T over ``[..., 3, 3]``, with R from the Newton polar
-        iteration (no SVD: the corotated stress needs only R, J, cof F)."""
-        if F.shape[-2:] != (3, 3):
-            raise NotImplementedError("only the 3-D stress is ported")
+        """tau = P F^T."""
+        return mm33(self.first_piola(F), F.transpose(-1, -2))
+
+
+@dataclasses.dataclass(frozen=True)
+class NeoHookean(ElasticModel):
+    """psi = mu/2 (tr(F^T F) - 3) - mu log J + lam/2 log^2 J."""
+
+    def psi(self, F):
+        J = det3(F)
+        logJ = torch.log(torch.clamp_min(J, 1e-12))
+        I1 = torch.sum(F * F, (-2, -1))
+        mu = bcast_scalar(self.mu, I1)
+        lam = bcast_scalar(self.lam, I1)
+        return 0.5 * mu * (I1 - 3) - mu * logJ + 0.5 * lam * logJ * logJ
+
+    def first_piola(self, F):
+        J = det3(F)
+        logJ = torch.log(torch.clamp_min(J, 1e-12))
+        Finv_T = _cof(F) / torch.clamp_min(J, 1e-12)[..., None, None]
+        mu = bcast_scalar(self.mu, F)
+        lam = bcast_scalar(self.lam, F)
+        return mu * (F - Finv_T) + lam * logJ[..., None, None] * Finv_T
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedCorotated(ElasticModel):
+    """psi = mu |F - R|^2 + lam/2 (J - 1)^2; P = 2 mu (F - R) + lam (J - 1)
+    cof(F).  ``psi``/``first_piola`` take R from the SVD (inverted elements
+    in the rotation convention); ``kirchhoff`` from the Newton polar
+    iteration, as the JAX package's explicit step does."""
+
+    def psi(self, F):
+        _, s, _ = svd3x3(F)
+        J = torch.prod(s, -1)
+        mu = bcast_scalar(self.mu, J)
+        lam = bcast_scalar(self.lam, J)
+        return mu * torch.sum((s - 1.0) ** 2, -1) + \
+            0.5 * lam * (J - 1.0) ** 2
+
+    def first_piola(self, F):
+        U, s, V = svd3x3(F)
+        R = mm33(U, V.transpose(-1, -2))
+        J = torch.prod(s, -1)
+        return (2.0 * bcast_scalar(self.mu, F)) * (F - R) + \
+            (bcast_scalar(self.lam, J) * (J - 1.0))[..., None, None] * _cof(F)
+
+    def kirchhoff(self, F):
+        """tau = P F^T with R from the Newton polar iteration (no SVD: the
+        corotated stress needs only R, J and cof F)."""
         R = polar_newton3x3(F)
-        cof = cof3(F)
+        cof = _cof(F)
         J = torch.sum(F[..., :, 0] * cof[..., :, 0], -1)
-        P = (2.0 * self.mu) * (F - R) + \
-            (self.lam * (J - 1.0))[..., None, None] * cof
+        P = (2.0 * bcast_scalar(self.mu, F)) * (F - R) + \
+            (bcast_scalar(self.lam, J) * (J - 1.0))[..., None, None] * cof
         return mm33(P, F.transpose(-1, -2))
+
+
+@dataclasses.dataclass(frozen=True)
+class StvkWithHencky(ElasticModel):
+    """St. Venant-Kirchhoff on the Hencky strain: psi = mu |log s|^2 +
+    lam/2 (sum log s)^2 over the principal stretches."""
+
+    def psi(self, F):
+        _, s, _ = svd3x3(F)
+        eps = torch.log(torch.clamp_min(s.abs(), 1e-12))
+        tr = torch.sum(eps, -1)
+        mu = bcast_scalar(self.mu, tr)
+        lam = bcast_scalar(self.lam, tr)
+        return mu * torch.sum(eps * eps, -1) + 0.5 * lam * tr ** 2
+
+    def first_piola(self, F):
+        U, s, V = svd3x3(F)
+        s_safe = torch.clamp_min(s.abs(), 1e-12) * torch.where(s < 0, -1.0,
+                                                               1.0)
+        eps = torch.log(s_safe.abs())
+        mu = bcast_scalar(self.mu, eps[..., 0])[..., None]
+        lam = bcast_scalar(self.lam, eps[..., 0])[..., None]
+        dpsi_dsigma = (2.0 * mu * eps +
+                       lam * torch.sum(eps, -1, keepdim=True)) / s_safe
+        return mm33(U, dpsi_dsigma[..., :, None] * V.transpose(-1, -2))
+
+
+@dataclasses.dataclass(frozen=True)
+class EquationOfState(ElasticModel):
+    """Weakly compressible fluid: p = bulk/gamma (J^-gamma - 1), an
+    isotropic Cauchy stress.  ``mu`` is unused; ``lam`` is the bulk
+    modulus."""
+
+    gamma: torch.Tensor = dataclasses.field(
+        default_factory=lambda: _f32(7.15))
+
+    @property
+    def bulk(self) -> torch.Tensor:
+        return self.lam
+
+    def pressure(self, J: torch.Tensor) -> torch.Tensor:
+        return self.bulk / self.gamma * (
+            torch.pow(torch.clamp_min(J, 1e-6), -self.gamma) - 1.0)
+
+    def psi(self, F):
+        J = det3(F)
+        g = self.gamma
+        # the integral of -p dJ
+        return -self.bulk / g * (torch.pow(torch.clamp_min(J, 1e-6), 1.0 - g)
+                                 / (1.0 - g) - J)
+
+    def kirchhoff_from_J(self, J: torch.Tensor) -> torch.Tensor:
+        """tau = -p J I from the scalar volume ratio (the fluid path)."""
+        eye = torch.eye(3, dtype=J.dtype, device=J.device)
+        return (-self.pressure(J) * J)[..., None, None] * eye
+
+    def first_piola(self, F):
+        return (-self.pressure(det3(F)))[..., None, None] * _cof(F)
+
+
+@dataclasses.dataclass(frozen=True)
+class AnisotropicArap(ElasticModel):
+    """Corotated ARAP plus a transversely isotropic fibre: psi =
+    mu |F - R|^2 + mu_fiber (|F a| - 1)^2 for the unit fibre ``a`` (one
+    direction ``[3]`` or per particle ``[..., 3]``)."""
+
+    fiber: torch.Tensor = dataclasses.field(
+        default_factory=lambda: _f32([1.0, 0.0, 0.0]))
+    mu_fiber: torch.Tensor = dataclasses.field(
+        default_factory=lambda: _f32(0.0))
+
+    def _fa(self, F):
+        a = self.fiber.to(F.device)
+        if a.dim() < F.dim() - 1:
+            a = a.expand(F.shape[:-2] + (3,))
+        return torch.einsum("...ij,...j->...i", F, a), a
+
+    def psi(self, F):
+        _, s, _ = svd3x3(F)
+        mu = bcast_scalar(self.mu, s[..., 0])
+        arap = mu * torch.sum((s - 1.0) ** 2, -1)
+        Fa, _ = self._fa(F)
+        ell = torch.linalg.vector_norm(Fa, dim=-1)
+        muf = bcast_scalar(self.mu_fiber, ell)
+        return arap + muf * (ell - 1.0) ** 2
+
+    def first_piola(self, F):
+        U, s, V = svd3x3(F)
+        R = mm33(U, V.transpose(-1, -2))
+        P = 2.0 * bcast_scalar(self.mu, F) * (F - R)
+        Fa, a = self._fa(F)
+        ell = torch.clamp_min(torch.linalg.vector_norm(Fa, dim=-1,
+                                                       keepdim=True), 1e-12)
+        muf = bcast_scalar(self.mu_fiber, F)
+        dpsi = 2.0 * muf * (1.0 - 1.0 / ell)[..., None]
+        return P + dpsi * Fa[..., :, None] * a[..., None, :]

@@ -2,12 +2,16 @@
 
 :func:`mpm_block` is ``examples/mpm_block.py:build`` line for line: the same
 ``default_rng(7)`` positions, material, colliders and CFL timestep, so a
-JAX run and a port run start from the same particles.  :func:`lbvh_boxes`
-is the LBVH broad-phase scene of ``benchmarks/run_all.py:bench_bvh``.
+JAX run and a port run start from the same particles.  :func:`dam_break`
+is the weakly compressible dam break of ``benchmarks/run_all.py:
+bench_fluid``, :func:`materials` the four material scenes of
+``examples/materials.py:build``, and :func:`lbvh_boxes` the LBVH
+broad-phase scene of ``benchmarks/run_all.py:bench_bvh``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -16,10 +20,17 @@ import torch
 from .geometry.collider import Collider, ColliderType
 from .geometry.levelset import ComplementLevelSet, Cuboid, HalfSpace
 from .models.cfl import timestep_linear_elasticity
-from .models.constitutive import FixedCorotated
+from .models.constitutive import (EquationOfState, FixedCorotated,
+                                  StvkWithHencky, lame_parameters)
+from .models.plasticity import DruckerPrager, SnowPlasticity
+from .sim.fluid import make_fluid_state
 from .sim.mpm import MPMSim, MPMState, make_mpm_state
+from .sim.mpm_binned2 import K, BinnedConfig2
 
-__all__ = ["mpm_block", "lbvh_boxes"]
+__all__ = ["mpm_block", "dam_break", "dam_break_config", "materials",
+           "MATERIALS", "lbvh_boxes"]
+
+MATERIALS = ("jello", "snow", "sand", "fluid")
 
 
 def mpm_block(n_particles: int, dx: float, device: torch.device,
@@ -48,6 +59,103 @@ def mpm_block(n_particles: int, dx: float, device: torch.device,
     sim = MPMSim(model=model, gravity=torch.tensor([0.0, -9.8, 0.0], **f32),
                  colliders=(ground, walls))
     dt = float(timestep_linear_elasticity(E, nu, 1e3, dx, cfl=0.4))
+    return sim, st, dt
+
+
+def _f32(v, device):
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def dam_break_config(n: int) -> BinnedConfig2:
+    """The dam break's bin budget, derived from ``n``: ``ceil(1.25 n / K)``
+    bins (2,560 at 262,144 particles, 10,240 at 1,048,576, the JAX bench's
+    two values, and enough lanes between them, where the bench's
+    two-point choice runs short), at least 64 (below ~6,500 particles the
+    K-padding of the column's partly filled blocks outgrows a quarter of
+    the lanes: 4,096 particles fill 43 bins), and a dilated table of
+    4,096 blocks up to 524,288 particles, 8,192 above."""
+    return BinnedConfig2(bins_capacity=max(math.ceil(1.25 * n / K), 64),
+                         block_capacity=8192 if n > 524_288 else 4096)
+
+
+def dam_break(n: int, device: torch.device
+              ) -> Tuple[MPMSim, MPMState, float, BinnedConfig2]:
+    """The weakly compressible dam break: a jittered-grid column of 8
+    particles per cell (``default_rng(11)``, two per cell per axis at +-0.1
+    dx) of ``side_c = round((n / 8)^(1/3))`` cells per axis, offset 0.05,
+    dx = 1/128; equation of state mu 0, lam 8e4, gamma 7; a slip tank
+    ``ComplementLevelSet(Cuboid(0.02, 0.98))``; dt 2e-4.  Returns
+    ``(sim, fluid state, dt, BinnedConfig2)``."""
+    rng = np.random.default_rng(11)
+    dx = 1.0 / 128
+    side_c = round((n / 8) ** (1 / 3))
+    cell = np.arange(side_c)
+    ci = np.stack(np.meshgrid(cell, cell, cell, indexing="ij"),
+                  -1).reshape(-1, 3)
+    offs = np.stack(np.meshgrid(*([np.asarray([0.25, 0.75])] * 3),
+                                indexing="ij"), -1).reshape(-1, 3)
+    x = (ci[:, None, :] + offs[None, :, :]).reshape(-1, 3)
+    x = (x + rng.uniform(-0.1, 0.1, x.shape)) * dx + 0.05
+    x = x.astype(np.float32)[:n]
+    cfg = dam_break_config(n)
+    st = make_fluid_state(x, dx=dx, device=device, rho=1e3,
+                          block_capacity=cfg.block_capacity)
+    tank = Collider(ComplementLevelSet(Cuboid(
+        torch.full((3,), 0.02, dtype=torch.float32, device=device),
+        torch.full((3,), 0.98, dtype=torch.float32, device=device))),
+        ColliderType.slip)
+    sim = MPMSim(model=EquationOfState(_f32(0.0, device), _f32(8e4, device),
+                                       _f32(7.0, device)),
+                 gravity=_f32([0.0, -9.8, 0.0], device), colliders=(tank,))
+    return sim, st, 2e-4, cfg
+
+
+def materials(material: str, n: int = 32768, dx: float = 1.0 / 64,
+              device: torch.device = torch.device("cpu")
+              ) -> Tuple[MPMSim, MPMState, float]:
+    """One of :data:`MATERIALS`: ``default_rng(1)`` positions in a cube of
+    side 0.2 centred at 0.5, lifted by 0.15, on a slip ground plane at
+    y = 0.1 with friction 0.4.  jello: FixedCorotated (E 5e4, nu 0.3),
+    dt 2e-4; snow: FixedCorotated (E 1.4e5, nu 0.2) with SnowPlasticity
+    and Jp = 1, dt 1e-4; sand: StvkWithHencky (E 3.5e5, nu 0.3) with
+    Drucker-Prager at 35 degrees and logJp = 0, dt 1e-4; fluid:
+    EquationOfState (lam 2e4, gamma 7.15) on F, dt 2e-4.  Returns
+    ``(sim, state, dt)``."""
+    rng = np.random.default_rng(1)
+    x = rng.uniform(0.4, 0.6, (n, 3)).astype(np.float32)
+    x[:, 1] += 0.15
+    ground = Collider(HalfSpace(_f32([0.0, 0.1, 0.0], device),
+                                _f32([0.0, 1.0, 0.0], device)),
+                      ColliderType.slip, friction=0.4)
+    with_Jp, Jp0 = False, 1.0
+    plasticity = None
+    if material == "jello":
+        model = FixedCorotated.from_young_poisson(5e4, 0.3, device=device)
+        dt = 2e-4
+    elif material == "snow":
+        model = FixedCorotated.from_young_poisson(1.4e5, 0.2, device=device)
+        plasticity = SnowPlasticity(*(_f32(v, device) for v in
+                                      (2.5e-2, 7.5e-3, 10.0, 0.1, 10.0)))
+        with_Jp, Jp0 = True, 1.0
+        dt = 1e-4
+    elif material == "sand":
+        mu, lam = (_f32(v, device) for v in lame_parameters(3.5e5, 0.3))
+        model = StvkWithHencky(mu, lam)
+        plasticity = DruckerPrager(mu, lam, _f32(35.0, device),
+                                   _f32(0.0, device))
+        with_Jp, Jp0 = True, 0.0                       # logJp
+        dt = 1e-4
+    elif material == "fluid":
+        model = EquationOfState(_f32(0.0, device), _f32(2e4, device),
+                                _f32(7.15, device))
+        dt = 2e-4
+    else:
+        raise ValueError(f"unknown material {material!r}, not one of "
+                         f"{MATERIALS}")
+    st = make_mpm_state(x, dx=dx, device=device, rho=1e3,
+                        block_capacity=4096, with_Jp=with_Jp, Jp0=Jp0)
+    sim = MPMSim(model=model, gravity=_f32([0.0, -9.8, 0.0], device),
+                 colliders=(ground,), plasticity=plasticity)
     return sim, st, dt
 
 

@@ -20,25 +20,29 @@ from ..geometry.collider import Collider, resolve_boundaries
 from ..geometry.sparse_grid import SparseGrid, neighbor_offsets, sparse_grid
 from ..math.interpolation import bspline_weights, stencil_size
 from ..math.vecmat import mm33
-from ..models.constitutive import FixedCorotated
+from ..models.constitutive import ElasticModel
 
 __all__ = ["MPMSim", "MPMState", "make_mpm_state", "explicit_step"]
 
 
 @dataclasses.dataclass(frozen=True)
 class MPMSim:
-    """Physical configuration: the elastic model, gravity ``[3]`` and the
-    boundary colliders.  Quadratic B-splines only (``order`` 2)."""
+    """Physical configuration: the elastic model, gravity ``[3]``, the
+    boundary colliders, an optional plasticity model (projected when the
+    state carries ``Jp``) and the FLIP blend (0: pure APIC).  Quadratic
+    B-splines only (``order`` 2)."""
 
-    model: FixedCorotated
+    model: ElasticModel
     gravity: torch.Tensor
     colliders: Tuple[Collider, ...] = ()
+    plasticity: Optional[object] = None
     order: int = 2
+    flip: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
 class MPMState:
-    particles: StructuredField   # x, v, F, C, m, vol
+    particles: StructuredField   # x, v, F, C, m, vol (+ Jp)
     grid: SparseGrid             # m [bs^3], v [bs^3, 3]
     max_vel: torch.Tensor        # 0-d, grid max speed of the last step
 
@@ -46,15 +50,19 @@ class MPMState:
 def make_mpm_state(x, *, dx: float, device: torch.device, rho: float = 1e3,
                    ppc: float = 8.0, block_capacity: int = 4096,
                    velocity=None, capacity: Optional[int] = None,
+                   with_Jp: bool = False, Jp0: float = 0.0,
                    origin=None) -> MPMState:
     """Particle and empty-grid state from positions ``x [n, 3]`` (numpy or
-    tensor): F = I, C = 0, m = rho * dx^3 / ppc, vol = dx^3 / ppc."""
+    tensor): F = I, C = 0, m = rho * dx^3 / ppc, vol = dx^3 / ppc, and
+    ``Jp = Jp0`` with ``with_Jp`` (the plastic state)."""
     x = torch.as_tensor(x, dtype=torch.float32, device=device)
     n, dim = x.shape
     cap = capacity or n
     vol0 = dx ** dim / ppc
     props = [prop("x", dim), prop("v", dim), prop("F", (dim, dim)),
              prop("C", (dim, dim)), prop("m"), prop("vol")]
+    if with_Jp:
+        props.append(prop("Jp"))
     f32 = dict(dtype=torch.float32, device=device)
     data = {
         "x": x,
@@ -65,6 +73,8 @@ def make_mpm_state(x, *, dx: float, device: torch.device, rho: float = 1e3,
         "m": torch.full((n,), rho * vol0, **f32),
         "vol": torch.full((n,), vol0, **f32),
     }
+    if with_Jp:
+        data["Jp"] = torch.full((n,), Jp0, **f32)
     particles = structured_field(props, cap, device=device, data=data,
                                  size=n)
     grid = sparse_grid([prop("m"), prop("v", dim)], dx=dx,
@@ -127,9 +137,9 @@ def explicit_step(sim: MPMSim, state: MPMState, dt) -> MPMState:
 
     # 3. grid update: velocity, gravity, colliders, massless nodes zeroed
     has_mass = gm > 0.0
-    gv = torch.where(has_mass[:, None],
-                     gmv / gm.clamp_min(1e-30)[:, None], 0.0)
-    gv = gv + dt * sim.gravity[None, :]
+    gv0 = torch.where(has_mass[:, None],
+                      gmv / gm.clamp_min(1e-30)[:, None], 0.0)
+    gv = gv0 + dt * sim.gravity[None, :]
     node_x = grid.node_world_positions().reshape(cap_cells, dim)
     gv = resolve_boundaries(sim.colliders, node_x, gv)
     gv = torch.where(has_mass[:, None], gv, 0.0)
@@ -143,8 +153,14 @@ def explicit_step(sim: MPMSim, state: MPMState, dt) -> MPMState:
     v_new = wv.sum(1)
     Bm = torch.bmm(wv.transpose(1, 2), xdiff)
     C_new = Dinv * Bm
+    if sim.flip > 0.0:
+        v_new = _flip_blend(sim.flip, p["v"], v_new, w3, gv - gv0, slot)
     eye = torch.eye(dim, dtype=F.dtype, device=F.device)
     F_new = mm33(eye + dt * C_new, F)
+    updates = {}
+    if sim.plasticity is not None and p.has_prop("Jp"):
+        F_new, Jp_new = sim.plasticity.project(F_new, p["Jp"])
+        updates["Jp"] = torch.where(pmask, Jp_new, p["Jp"])
     x_new = p["x"] + dt * v_new
 
     mk = pmask[:, None]
@@ -152,5 +168,16 @@ def explicit_step(sim: MPMSim, state: MPMState, dt) -> MPMState:
         x=torch.where(mk, x_new, p["x"]),
         v=torch.where(mk, v_new, p["v"]),
         F=torch.where(mk[..., None], F_new, F),
-        C=torch.where(mk[..., None], C_new, p["C"]))
+        C=torch.where(mk[..., None], C_new, p["C"]), **updates)
     return MPMState(particles, grid, max_vel)
+
+
+def _flip_blend(flip: float, v_old, v_pic, w3, gdv, slot):
+    """FLIP/APIC blend: ``flip (v_old + dv) + (1 - flip) v_pic``, where dv
+    is the grid velocity change of this step (forces and boundaries, the
+    node velocity after them minus the one before) gathered at the
+    particle; ``slot`` is the trash-slotted cell index of each stencil
+    node."""
+    dvnode = torch.cat([gdv, torch.zeros_like(gdv[:1])])[slot]
+    dv = (w3[..., None] * dvnode).sum(1)
+    return flip * (v_old + dv) + (1.0 - flip) * v_pic

@@ -19,11 +19,16 @@ The rebin's prefix sums go through
 :func:`zpc_tpu_torch.parallel.primitives.inclusive_scan`, which launches the
 CUDA scan kernel for a CUDA tensor.
 
-The transfers are plain PyTorch: each lane's 27 stencil nodes sit in its
-bin's window; the window octant maps through the frozen ``nbr8`` table to a
-block slot, and the node's cell within that block gives the flat index.
-P2G is one ``index_add_`` of (m, m v + A dx) into an ``[nb * 64 + 1, 4]``
-accumulator whose last row takes whatever falls outside; G2P gathers back.
+The transfers are plain PyTorch, in helpers that the elastic step and the
+fluid step (``sim/fluid_binned2.py``) share: :func:`_make_ctx` places each
+lane's 27 stencil nodes in its bin's window (the window octant maps
+through the frozen ``nbr8`` table to a block slot, and the node's cell
+within that block gives the flat index); :func:`_ctx_p2g` is one
+``index_add_`` of (m, m v + A dx) into an ``[nb * 64 + 1, 4]``
+accumulator whose last row takes whatever falls outside;
+:func:`_grid_update`, :func:`_ctx_g2p` and :func:`_recenter` follow.  A
+state with ``Jp`` carries it as a 27th column, projected with the new F
+by ``sim.plasticity``.
 
 Not ported (TPU workarounds, see ROADMAP.md): ``chunk_bins`` (the chunked
 transfer is physics-identical to the unchunked one), ``sort_chunk``,
@@ -72,8 +77,10 @@ class BinnedConfig2:
 class BinState:
     """Particle state in bin order.
 
-    ``cols``: [L, 26] packed channels (x3 v3 F9 C9 m1 vol1); dummy and dead
-    lanes carry m = 0.  ``pid``: [L] original particle index, -1 on dummy
+    ``cols``: [L, W] packed channels: x3 v3 F9 C9 m1 vol1 (W = 26), plus
+    Jp1 (W = 27) for a plastic state, or the fluid layout x3 v3 J1 C9 m1
+    vol1 (W = 18, ``sim/fluid_binned2.py``); dummy and dead lanes carry
+    m = 0.  ``pid``: [L] original particle index, -1 on dummy
     lanes.  ``bin_block``: [bins] table slot per bin frozen at rebin time
     (-1: dead bin).  ``nbr8``: [nb, 8] table slots of each block and its
     +1 neighbours (the window's octants), -1 where absent, frozen with the
@@ -89,6 +96,11 @@ class BinState:
     bin_block: torch.Tensor
     nbr8: torch.Tensor
 
+    @property
+    def has_jp(self) -> bool:
+        """The elastic layout with the 27th (Jp) column."""
+        return self.cols.shape[1] == 27
+
 
 def _pack_cols(p, pmask: torch.Tensor) -> torch.Tensor:
     n = p.capacity
@@ -97,6 +109,8 @@ def _pack_cols(p, pmask: torch.Tensor) -> torch.Tensor:
             p["C"].reshape(n, d * d),
             torch.where(pmask, p["m"], 0.0)[:, None],
             torch.where(pmask, p["vol"], 0.0)[:, None]]
+    if p.has_prop("Jp"):
+        cols.append(p["Jp"][:, None])
     return torch.cat(cols, dim=1)
 
 
@@ -105,7 +119,7 @@ def _col_layout(dim: int) -> dict:
     dd = dim * dim
     return dict(x=(0, dim), v=(dim, 2 * dim), F=(2 * dim, 2 * dim + dd),
                 C=(2 * dim + dd, 2 * dim + 2 * dd), m=2 * dim + 2 * dd,
-                vol=2 * dim + 2 * dd + 1)
+                vol=2 * dim + 2 * dd + 1, Jp=2 * dim + 2 * dd + 2)
 
 
 def _bin_keys(x: torch.Tensor, alive: torch.Tensor, grid: SparseGrid,
@@ -333,12 +347,14 @@ def unbin_state(st: BinState, template: MPMState) -> MPMState:
     def col(name):
         lo, hi = lay[name]
         return mat[:, lo:hi]
-    particles = p.update(
+    upd = dict(
         x=torch.where(mk, col("x"), p["x"]),
         v=torch.where(mk, col("v"), p["v"]),
         F=torch.where(mk[..., None], col("F").reshape(N, 3, 3), p["F"]),
         C=torch.where(mk[..., None], col("C").reshape(N, 3, 3), p["C"]))
-    return MPMState(particles, st.grid, st.max_vel)
+    if st.has_jp and p.has_prop("Jp"):
+        upd["Jp"] = torch.where(p.mask, mat[:, lay["Jp"]], p["Jp"])
+    return MPMState(p.update(**upd), st.grid, st.max_vel)
 
 
 # ---------------------------------------------------------------------------
@@ -358,30 +374,35 @@ def _window_weight(t: torch.Tensor) -> torch.Tensor:
     return 0.5 * c1 * c1 - 1.5 * c2 * c2
 
 
-def explicit_step_binned2(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
-                          *, rebin: bool = True) -> BinState:
-    """One explicit APIC step on a :class:`BinState` (bin order in and
-    out); ``rebin=True`` re-sorts first."""
-    if rebin:
-        st = _rebin(sim, st, cfg)
+@dataclasses.dataclass(frozen=True)
+class _Ctx:
+    """Per-step lane stencil over a :class:`BinState`, shared by the
+    elastic and the fluid step: each lane's 27 stencil nodes at window
+    positions ``base - borigin + (0..2)`` of its bin's frozen 8-node
+    window, mapped through ``nbr8`` to flat grid indices (``nb * 64`` for
+    nodes outside the window or in an absent block)."""
+
+    grid: SparseGrid
+    dx: torch.Tensor           # 0-d cell size (read once per step)
+    dinv: torch.Tensor         # 0-d APIC D^-1 = 4 / dx^2
+    alive: torch.Tensor        # [L] live lanes
+    borigin_l: torch.Tensor    # [L, 3] window origin of each lane's bin
+    flat: torch.Tensor         # [L, 27] flat node index (long)
+    w3: torch.Tensor           # [L, 27] weights, dead lanes zero
+    xdiff: torch.Tensor        # [L, 27, 3] x_node - x_particle
+    overflow: torch.Tensor     # 0-d: st.overflow or a live bin unmapped
+
+
+def _make_ctx(st: BinState, cfg: BinnedConfig2) -> _Ctx:
     grid = st.grid
     table = grid.table
     nb = table.capacity
     dev = st.cols.device
-    dx = grid.dx
-    origin = grid.origin
     B = cfg.bins_capacity
     L = B * K
     side = SIDE
-    f32 = torch.float32
-
-    cols = st.cols
-    xb, vb = cols[:, 0:3], cols[:, 3:6]
-    Fb = cols[:, 6:15].reshape(L, 3, 3)
-    Cb = cols[:, 15:24].reshape(L, 3, 3)
     alive = st.pid >= 0
-    m = torch.where(alive, cols[:, 24], 0.0)
-    vol = torch.where(alive, cols[:, 25], 0.0)
+    dx = grid.dx
 
     # bin -> block mapping frozen at rebin time
     bin_live = alive.reshape(B, K).any(1)
@@ -394,17 +415,17 @@ def explicit_step_binned2(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
     lane_bin = torch.arange(L, device=dev) // K
     borigin_l = borigin[lane_bin]                               # [L, 3]
 
-    # stencil: 27 nodes per lane at window positions pos = base - borigin
-    # + (0..2); nodes outside the 8-node window are dropped, as the JAX
-    # window stencil drops them
-    xib = (xb - origin) / dx
+    # nodes outside the 8-node window are dropped, as the JAX window
+    # stencil drops them
+    xib = (st.cols[:, 0:3] - grid.origin) / dx
     base = torch.floor(xib - 0.5).to(torch.int32)
     offs = torch.as_tensor(_OFFS27, device=dev)                 # [27, 3]
     pos = (base - borigin_l)[:, None, :] + offs[None]           # [L, 27, 3]
     inwin = ((pos >= 0) & (pos < side)).all(-1)
     node = borigin_l[:, None, :] + pos                          # cell index
-    t = xib[:, None, :] - node.to(f32)
-    w3 = _window_weight(t).prod(-1) * (inwin & alive[:, None]).to(f32)
+    t = xib[:, None, :] - node.to(torch.float32)
+    w3 = _window_weight(t).prod(-1) * (inwin & alive[:, None]).to(
+        torch.float32)
     posc = pos.clamp(0, side - 1)
     octant = ((posc[..., 0] >> 2) * 4 + (posc[..., 1] >> 2) * 2 +
               (posc[..., 2] >> 2)).long()
@@ -412,67 +433,123 @@ def explicit_step_binned2(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
             (posc[..., 2] & 3))
     slot = tgt8[lane_bin[:, None], octant]                      # [L, 27]
     flat = torch.where(inwin & (slot >= 0), slot * 64 + cell, nb * 64).long()
+    return _Ctx(grid, dx, 4.0 / (dx * dx), alive, borigin_l, flat, w3,
+                -t * dx, overflow)
 
-    # ---- P2G ----------------------------------------------------------------
-    Dinv = 4.0 / (dx * dx)
-    tau = sim.model.kirchhoff(Fb)
-    A = m[:, None, None] * Cb - (dt * Dinv * vol)[:, None, None] * tau
-    xdiff = -t * dx                                             # x_i - x_p
-    Ax = torch.bmm(xdiff, A.transpose(1, 2))                    # [L, 27, 3]
-    mom = w3[..., None] * (m[:, None, None] * vb[:, None, :] + Ax)
-    payload = torch.cat([(w3 * m[:, None])[..., None], mom], -1)
-    acc = torch.zeros((nb * 64 + 1, 4), dtype=f32, device=dev)
-    acc.index_add_(0, flat.reshape(-1), payload.reshape(-1, 4))
-    gm = acc[:nb * 64, 0].reshape(nb, 64)
-    gmv = acc[:nb * 64, 1:].reshape(nb, 64, 3)
 
-    # ---- grid update --------------------------------------------------------
+def _ctx_p2g(ctx: _Ctx, m: torch.Tensor, v: torch.Tensor, A: torch.Tensor):
+    """P2G: scatter (m, m v + A (x_i - x_p)) with the stencil weights into
+    the ``[nb * 64 + 1, 4]`` accumulator (the last row takes what falls
+    outside).  Returns (gm [nb, 64], gmv [nb, 64, 3])."""
+    nb = ctx.grid.table.capacity
+    Ax = torch.bmm(ctx.xdiff, A.transpose(1, 2))                # [L, 27, 3]
+    mom = ctx.w3[..., None] * (m[:, None, None] * v[:, None, :] + Ax)
+    payload = torch.cat([(ctx.w3 * m[:, None])[..., None], mom], -1)
+    acc = torch.zeros((nb * 64 + 1, 4), dtype=torch.float32,
+                      device=m.device)
+    acc.index_add_(0, ctx.flat.reshape(-1), payload.reshape(-1, 4))
+    return acc[:nb * 64, 0].reshape(nb, 64), \
+        acc[:nb * 64, 1:].reshape(nb, 64, 3)
+
+
+def _grid_update(sim: MPMSim, ctx: _Ctx, gm: torch.Tensor,
+                 gmv: torch.Tensor, dt):
+    """Node velocities: momentum over mass, gravity, colliders at the node
+    positions, massless nodes zeroed.  Returns (gv [nb, 64, 3], max
+    speed)."""
+    table = ctx.grid.table
     has_mass = gm > 0.0
     gv = torch.where(has_mass[..., None],
                      gmv / gm.clamp_min(1e-30)[..., None], 0.0)
     gv = gv + dt * sim.gravity
-    corners = torch.as_tensor(_CORNERS64, device=dev)
+    corners = torch.as_tensor(_CORNERS64, device=gm.device)
     node_x = (table.active_coords[:, None, :] * 4 +
-              corners[None]).to(f32) * dx + origin
+              corners[None]).to(torch.float32) * ctx.dx + ctx.grid.origin
     gv = resolve_boundaries(sim.colliders, node_x, gv)
     gv = torch.where(has_mass[..., None], gv, 0.0)
-    max_vel = torch.sqrt(torch.max(torch.sum(gv * gv, -1)))
+    return gv, torch.sqrt(torch.max(torch.sum(gv * gv, -1)))
 
-    # ---- G2P ----------------------------------------------------------------
+
+def _ctx_g2p(ctx: _Ctx, gv: torch.Tensor):
+    """G2P: (v_new [L, 3], C_new [L, 3, 3]) gathered from the node
+    velocities ``gv [nb, 64, 3]``."""
+    nb = ctx.grid.table.capacity
     gvf = torch.cat([gv.reshape(nb * 64, 3), gv.new_zeros((1, 3))])
-    wv = w3[..., None] * gvf[flat]                              # [L, 27, 3]
-    v_new = wv.sum(1)
-    C_new = Dinv * torch.bmm(wv.transpose(1, 2), xdiff)
-    eye = torch.eye(3, dtype=f32, device=dev)
-    F_new = mm33(eye + dt * C_new, Fb)
-    x_new = xb + dt * v_new
+    wv = ctx.w3[..., None] * gvf[ctx.flat]                      # [L, 27, 3]
+    C_new = ctx.dinv * torch.bmm(wv.transpose(1, 2), ctx.xdiff)
+    return wv.sum(1), C_new
 
-    # escape check against the frozen window, after recentering
-    base_new = torch.floor((x_new - origin) / dx - 0.5).to(torch.int32)
-    off_new = base_new - borigin_l
-    # recentering: follow the bulk integer drift so the next step's bases
-    # stay centred in their windows (the grid is rebuilt every step, so
-    # moving its origin between steps is free)
+
+def _recenter(ctx: _Ctx, x_new: torch.Tensor):
+    """Follow the bulk integer drift with the grid origin (so the next
+    step's bases stay centred in their windows; the grid is rebuilt every
+    step, so moving its origin between steps is free) and flag a lane
+    whose new base left its window.  Returns (grid, escaped)."""
+    grid = ctx.grid
+    dx = ctx.dx
+    side = SIDE
+    alive = ctx.alive
+    base_new = torch.floor((x_new - grid.origin) / dx - 0.5).to(torch.int32)
+    off_new = base_new - ctx.borigin_l
     asum = alive.sum().clamp_min(1)
-    mean_off = torch.where(alive[:, None], off_new, 0).sum(0).to(f32) / asum
+    mean_off = torch.where(alive[:, None], off_new, 0).sum(0).to(
+        torch.float32) / asum
     shift = torch.clamp(torch.round(mean_off - 0.5 * (side - 3)),
                         -1.0, 1.0).to(torch.int32)
     off_new = off_new - shift
     tm = grid.transform.matrix.clone()
-    tm[:3, 3] += shift.to(f32) * dx
+    tm[:3, 3] += shift.to(torch.float32) * dx
     grid = dataclasses.replace(
         grid, transform=dataclasses.replace(grid.transform, matrix=tm))
     escaped = (alive[:, None] & ((off_new < 0) | (off_new > side - 3))).any()
+    return grid, escaped
+
+
+def explicit_step_binned2(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
+                          *, rebin: bool = True) -> BinState:
+    """One explicit APIC step on a :class:`BinState` (bin order in and
+    out); ``rebin=True`` re-sorts first.  With a Jp column and
+    ``sim.plasticity`` the new F is projected and Jp updated, as in the
+    JAX package (whose binned step, like this one, has no FLIP blend)."""
+    if rebin:
+        st = _rebin(sim, st, cfg)
+    ctx = _make_ctx(st, cfg)
+    L = st.cols.shape[0]
+    lay = _col_layout(3)
+    cols = st.cols
+    xb, vb = cols[:, 0:3], cols[:, 3:6]
+    Fb = cols[:, 6:15].reshape(L, 3, 3)
+    Cb = cols[:, 15:24].reshape(L, 3, 3)
+    alive = ctx.alive
+    m = torch.where(alive, cols[:, lay["m"]], 0.0)
+    vol = torch.where(alive, cols[:, lay["vol"]], 0.0)
+
+    tau = sim.model.kirchhoff(Fb)
+    A = m[:, None, None] * Cb - (dt * ctx.dinv * vol)[:, None, None] * tau
+    gm, gmv = _ctx_p2g(ctx, m, vb, A)
+    gv, max_vel = _grid_update(sim, ctx, gm, gmv, dt)
+    v_new, C_new = _ctx_g2p(ctx, gv)
+    eye = torch.eye(3, dtype=torch.float32, device=cols.device)
+    F_new = mm33(eye + dt * C_new, Fb)
+    if st.has_jp:
+        Jpb = cols[:, lay["Jp"]]
+        Jp_new = Jpb
+        if sim.plasticity is not None:
+            F_new, Jp_new = sim.plasticity.project(F_new, Jpb)
+    x_new = xb + dt * v_new
+    grid, escaped = _recenter(ctx, x_new)
 
     ok = alive[:, None]
-    ncols = torch.cat([torch.where(ok, x_new, xb),
-                       torch.where(ok, v_new, vb),
-                       torch.where(ok[..., None], F_new, Fb).reshape(L, 9),
-                       torch.where(ok[..., None], C_new, Cb).reshape(L, 9),
-                       m[:, None], vol[:, None]], dim=1)
+    newcols = [torch.where(ok, x_new, xb), torch.where(ok, v_new, vb),
+               torch.where(ok[..., None], F_new, Fb).reshape(L, 9),
+               torch.where(ok[..., None], C_new, Cb).reshape(L, 9),
+               m[:, None], vol[:, None]]
+    if st.has_jp:
+        newcols.append(torch.where(alive, Jp_new, Jpb)[:, None])
     grid = dataclasses.replace(grid, data={"m": gm, "v": gv})
-    return dataclasses.replace(st, cols=ncols, grid=grid, max_vel=max_vel,
-                               overflow=overflow, needs_rebin=escaped)
+    return dataclasses.replace(st, cols=torch.cat(newcols, dim=1), grid=grid,
+                               max_vel=max_vel, overflow=ctx.overflow,
+                               needs_rebin=escaped)
 
 
 def adaptive_chain(step_fn: Callable[[BinState], BinState],
