@@ -2,9 +2,11 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Three paths run at full width: the explicit-MPM elastic block, the LBVH
-broad phase and the weakly compressible dam break; the four materials of
-examples/materials.py run at their own size.  Phases (each prints its
+Four paths run at full width: the explicit-MPM elastic block, the LBVH
+broad phase, the weakly compressible dam break and the implicit-MPM block
+(BASELINE config 5 without contact); the four materials of
+examples/materials.py run at their own size, and the CG Poisson solve of
+BASELINE config 2 at its bench size.  Phases (each prints its
 results; a failed check raises and the script exits non-zero; nothing is
 caught):
 
@@ -62,10 +64,26 @@ caught):
    200 steps each, with the gates of tests/test_materials.py; snow
    pre-compressed at 4,096 particles for 50 steps on the card against the
    CPU (x, F, Jp within 1e-5 plus the CPU's own spread over summation
-   order), and Jp must move.
+   order), and Jp must move;
+13. implicit block at full width: the 1,000,000-particle scene of
+   bench_implicit (dx = 1/128, dt 5e-4, BinnedConfig2(bins_capacity=9216,
+   block_capacity=8192)), bin_state, one implicit_step_binned2 with its
+   CG iteration count (beside the TPU's 4, a check, not a gate), a
+   10-step adaptive_chain (cg_iters 50, cg_tol 1e-3) and one rebin of the
+   final state, every scan replayed against the plain version; the gates:
+   no overflow, finite columns, particle mass unchanged, grid mass within
+   1e-4, mean v_y within 1% of free fall; then the chain best of 3
+   (ms/step, particle-steps/s, CG iterations per step);
+14. implicit card against CPU: phase 5's small scene for 20 implicit
+   steps on CUDA and on the CPU (CG iterations per step equal within 1;
+   x, v, F within 1e-6, 5e-4, 1e-5 plus the CPU's own spread over
+   summation order);
+15. CG Poisson: 100 iterations at 32^3 on the card against the CPU
+   (within 1e-5 of max |x|), then at 128^3 timed (best of 3): ms,
+   iterations/s and GB/s under bench_poisson's byte model.
 
-The scan's launches in the kernel record are those of phases 4, 10 and 12
-(a line before gives them per path).  The last two lines are the kernel
+The scan's launches in the kernel record are those of phases 4, 10, 12
+and 13 (a line before gives them per path).  The last two lines are the kernel
 record and the contract line ``{"ok": true, "device": {...}}``.
 """
 
@@ -93,9 +111,11 @@ from zpc_tpu_torch import _kernels, scenes  # noqa: E402
 from zpc_tpu_torch.containers import bvh as bvh_mod  # noqa: E402
 from zpc_tpu_torch.ops import nse as nse_op  # noqa: E402
 from zpc_tpu_torch.ops import scan as scan_op  # noqa: E402
+from zpc_tpu_torch.math import solvers  # noqa: E402
 from zpc_tpu_torch.parallel import primitives  # noqa: E402
 from zpc_tpu_torch.sim import fluid as fl  # noqa: E402
 from zpc_tpu_torch.sim import fluid_binned2 as fb  # noqa: E402
+from zpc_tpu_torch.sim import implicit_binned2 as ib2  # noqa: E402
 from zpc_tpu_torch.sim import mpm as mpm_mod  # noqa: E402
 from zpc_tpu_torch.sim import mpm_binned2 as b2  # noqa: E402
 
@@ -128,6 +148,14 @@ TOL_FLUID = dict(x=1e-5, v=2e-4, J=1e-5)
 N_MAT, DX_MAT, MAT_STEPS = 32_768, 1.0 / 64, 200
 CFG_MAT = b2.BinnedConfig2(bins_capacity=384)
 N_SNOW, SNOW_STEPS = 4_096, 50
+# the implicit block of bench_implicit (BASELINE config 5 without contact):
+# one step with its CG count, then a chain; the small run for the card
+# against the CPU; the CG Poisson solve of bench_poisson (config 2)
+N_IMP, IMP_CHAIN, CG_ITERS, CG_TOL = 1_000_000, 10, 50, 1e-3
+TPU_CG_ITERS = 4                      # BENCHMARKS.md:107, TPU v5e
+IMP_SMALL_STEPS = 20
+TOL_IMP = dict(x=1e-6, v=5e-4, F=1e-5)
+N_POISSON, POISSON_ITERS, N_POISSON_SMALL = 128, 100, 32
 HBM_BYTES_PER_MS = 3.35e12 / 1e3     # H100 SXM HBM3 rate (data sheet)
 _WINDOW = "timed calls"               # the profiler window of device_split
 
@@ -1063,7 +1091,7 @@ def _material_run(material, dev, steps):
     """``steps`` binned steps of one material of examples/materials.py
     (fluid as a J state on fluid_binned2); returns (state in original
     order, sim, dt)."""
-    sim, st, dt = scenes.materials(material, N_MAT, DX_MAT, dev)
+    sim, st, dt = scenes.materials(material, N_MAT, DX_MAT, device=dev)
     if material == "fluid":
         st = fl.make_fluid_state(st.particles["x"], dx=DX_MAT, device=dev,
                                  block_capacity=st.grid.block_capacity)
@@ -1088,7 +1116,7 @@ def _snow_run(where, reverse):
     binned steps; ``reverse`` feeds the particles in reverse order (the
     same physics, another summation order), the result comes back in the
     scene's order."""
-    sim, st, dt = scenes.materials("snow", N_SNOW, 1.0 / 32, where)
+    sim, st, dt = scenes.materials("snow", N_SNOW, 1.0 / 32, device=where)
     F0 = 0.9 * torch.eye(3, device=where).expand(N_SNOW, 3, 3)
     p = st.particles.update(F=F0.clone())
     if reverse:
@@ -1141,6 +1169,176 @@ def materials_path(dev, card):
     return launches
 
 
+def implicit_path(dev, card):
+    phase("13 implicit block at full width")
+    sim, st, dt = scenes.implicit_block(N_IMP, dev)
+    cfg = scenes.implicit_config(N_IMP)
+    print(f"  {N_IMP} particles, dx = 1/128, dt = {dt}, BinnedConfig2("
+          f"bins_capacity={cfg.bins_capacity}, block_capacity="
+          f"{cfg.block_capacity}), cg_iters {CG_ITERS}, cg_tol {CG_TOL}",
+          flush=True)
+    m0 = st.particles["m"].double().sum().item()
+    iters, rebins, last = [], [0], {}
+
+    def step(s):
+        out, it = ib2.implicit_step_binned2(
+            sim, s, dt, cfg, cg_iters=CG_ITERS, cg_tol=CG_TOL, rebin=False,
+            with_stats=True)
+        iters.append(it)
+        last["st"] = out
+        return out
+
+    def rebin(s):
+        rebins[0] += 1
+        return b2.rebin_adaptive(sim, s, cfg)
+
+    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    with recorded_scans() as calls:
+        bst = b2.bin_state(sim, st, cfg)
+        torch.cuda.synchronize()
+        launches_bin = scan_op.LAUNCHES
+        _, it0 = ib2.implicit_step_binned2(
+            sim, bst, dt, cfg, cg_iters=CG_ITERS, cg_tol=CG_TOL, rebin=False,
+            with_stats=True)
+        print(f"  one step from the binned state: {it0} CG iterations (a "
+              f"check, not a gate: BENCHMARKS.md:107 records "
+              f"{TPU_CG_ITERS} on TPU v5e)", flush=True)
+        out = b2.adaptive_chain(step, rebin, bst, IMP_CHAIN)
+        torch.cuda.synchronize()
+        launches_chain = scan_op.LAUNCHES - launches_bin
+        # the chain is a free fall, which recentering absorbs: rebin its
+        # final state once, so a rebin runs the scan kernel on this path
+        reb = b2.rebin_adaptive(sim, out, cfg)
+        torch.cuda.synchronize()
+    launches = scan_op.LAUNCHES
+    check(nse_op.LAUNCHES == 0, "the implicit path launched no NSE kernel")
+    print(f"  {IMP_CHAIN}-step chain: CG iterations per step {iters}, "
+          f"{rebins[0]} rebins; scan launches {launches}: {launches_bin} in "
+          f"bin_state, {launches_chain} in the chain, "
+          f"{launches - launches_bin - launches_chain} in the final rebin",
+          flush=True)
+    check(launches_bin > 0 and launches > launches_bin + launches_chain,
+          "bin_state and the final rebin launched the scan kernel")
+    check(len(calls) == launches, f"{len(calls)} scans recorded")
+    sizes = replay_scans(calls)
+    check(True, f"every implicit-path scan = plain on the same input, ints "
+                f"exact; (n, op): {sizes}")
+    check(not bool(out.overflow) and not bool(reb.overflow),
+          "no overflow (chain and final rebin)")
+    check(bool(torch.isfinite(out.cols).all()), "every column finite")
+    cols = _alive_cols(out)
+    check(cols.shape[0] == N_IMP, "every particle alive in bin order")
+    m1 = cols[:, 24].double().sum().item()
+    check(abs(m1 - m0) <= 1e-9 * m0, f"particle mass unchanged ({m1:.9g})")
+    lst = last["st"]
+    gmass = lst.grid.data["m"].double().sum().item()
+    pmass = _alive_cols(lst)[:, 24].double().sum().item()
+    check(abs(gmass - pmass) <= 1e-4 * pmass,
+          f"grid mass {gmass:.9g} within 1e-4 of particle mass on the last "
+          f"step")
+    vy = cols[:, 4].double().mean().item()
+    vff = -9.8 * IMP_CHAIN * dt
+    check(abs(vy - vff) <= 0.01 * abs(vff),
+          f"mean v_y {vy:.6f} within 1% of free fall {vff:.6f}")
+
+    def timed_chain():
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        o = b2.adaptive_chain(step, rebin, bst, IMP_CHAIN)
+        e1.record()
+        torch.cuda.synchronize()
+        check(not bool(o.overflow), "timed chain: no overflow")
+        return e0.elapsed_time(e1) / IMP_CHAIN
+    times = [timed_chain() for _ in range(3)]
+    ms = min(times)
+    print(f"  {IMP_CHAIN}-step chain best of 3: {ms:.4f} ms/step = "
+          f"{N_IMP / ms / 1e3:.4f} M particle-steps/s (chains "
+          f"{', '.join(f'{t:.4f}' for t in times)} ms/step; CG iterations "
+          f"per step {iters[-IMP_CHAIN:]}; {card})", flush=True)
+    return launches
+
+
+def _implicit_small(dev, reverse=False):
+    """The small block (4,096 particles, dx = 1/32) for IMP_SMALL_STEPS
+    implicit steps; ``reverse`` feeds the particles in reverse order (the
+    same physics, another summation order).  Returns (state in the
+    scene's order, final BinState, CG iterations per step)."""
+    sim, st, _ = scenes.mpm_block(4096, 1.0 / 32, dev, block_capacity=256)
+    cfg = b2.BinnedConfig2(bins_capacity=64, block_capacity=256)
+    p = st.particles
+    if reverse:
+        p = p.update(**{k: v.flip(0) for k, v in p.channels.items()})
+    st = mpm_mod.MPMState(p, st.grid, st.max_vel)
+    iters = []
+
+    def step(s):
+        s, it = ib2.implicit_step_binned2(sim, s, 5e-4, cfg, cg_tol=CG_TOL,
+                                          rebin=False, with_stats=True)
+        iters.append(it)
+        return s
+    out = b2.adaptive_chain(step, lambda s: b2.rebin_adaptive(sim, s, cfg),
+                            b2.bin_state(sim, st, cfg), IMP_SMALL_STEPS)
+    ch = b2.unbin_state(out, st).particles.channels
+    return ({k: (v.flip(0) if reverse else v).cpu() for k, v in ch.items()},
+            out, iters)
+
+
+def implicit_card_vs_cpu(dev):
+    phase("14 implicit card against CPU, same port")
+    g, gb, gi = _implicit_small(dev)
+    c, cb, ci = _implicit_small(torch.device("cpu"))
+    c_rev, _, ri = _implicit_small(torch.device("cpu"), reverse=True)
+    print(f"  CG iterations per step: card {gi}, CPU {ci}, CPU reversed "
+          f"{ri}", flush=True)
+    for k, (a, b) in enumerate(zip(gi, ci)):
+        if a != b:
+            print(f"  step {k}: card {a} against CPU {b} CG iterations: the "
+                  f"stopping test r.z > 1e-6 r0.z0 read on the two "
+                  f"devices' sums in different orders", flush=True)
+    check(all(abs(a - b) <= 1 for a, b in zip(gi, ci)),
+          "CG iterations per step equal within 1")
+    check(not bool(gb.overflow) and not bool(cb.overflow), "no overflow")
+    for k in ("x", "v", "F"):
+        spread = (c_rev[k] - c[k]).abs().max().item()
+        err = (g[k] - c[k]).abs().max().item()
+        check(err <= TOL_IMP[k] + spread,
+              f"{k} max abs diff {err:.3g} <= {TOL_IMP[k]} + the CPU's own "
+              f"spread over summation order {spread:.3g}")
+
+
+def poisson(dev, card):
+    phase("15 CG Poisson (config 2)")
+    xg, xc = (solvers.cg(scenes.laplace,
+                         scenes.poisson_rhs(N_POISSON_SMALL, where),
+                         max_iters=POISSON_ITERS, rel_tol=0.0).x.cpu()
+              for where in (dev, torch.device("cpu")))
+    err = (xg - xc).abs().max().item() / xc.abs().max().item()
+    check(err <= 1e-5, f"{N_POISSON_SMALL}^3 after {POISSON_ITERS} "
+                       f"iterations: the card's x = the CPU port's within "
+                       f"{err:.3g} of max |x| (<= 1e-5)")
+    b = scenes.poisson_rhs(N_POISSON, dev)
+    out = {}
+
+    def solve():
+        out["res"] = solvers.cg(scenes.laplace, b, max_iters=POISSON_ITERS,
+                                rel_tol=0.0)
+    solve()                                       # warm-up
+    ms = min(cuda_ms(solve, 1, warmup=0) for _ in range(3))
+    check(out["res"].iters == POISSON_ITERS and bool(torch.isfinite(
+        out["res"].x).all()), f"{POISSON_ITERS} iterations, x finite")
+    n3 = N_POISSON ** 3
+    gbs = POISSON_ITERS * 8 * n3 * 4 / (ms / 1e3) / 1e9
+    print(f"  CG Poisson {N_POISSON}^3, {POISSON_ITERS} iterations: "
+          f"{ms:.4f} ms (best of 3) = {POISSON_ITERS / ms * 1e3:.2f} "
+          f"iterations/s, {gbs:.2f} GB/s under bench_poisson's byte model "
+          f"(8 n^3 x 4 bytes an iteration, benchmarks/run_all.py:198); "
+          f"that model's bound at 3.35 TB/s "
+          f"{POISSON_ITERS * 8 * n3 * 4 / HBM_BYTES_PER_MS:.4f} ms ({card})",
+          flush=True)
+    return ms
+
+
 def main():
     card = environment()
     dev = zpc_tpu_torch.cuda_device(0)
@@ -1156,9 +1354,13 @@ def main():
     fluid_launches, _ = dam_break_path(dev, card)
     fluid_card_vs_cpu(dev)
     mat_launches = materials_path(dev, card)
+    imp_launches = implicit_path(dev, card)
+    implicit_card_vs_cpu(dev)
+    poisson(dev, card)
     per_path = {"elastic block (phase 4)": launches,
                 "dam break (phase 10)": fluid_launches,
-                "materials (phase 12)": mat_launches}
+                "materials (phase 12)": mat_launches,
+                "implicit block (phase 13)": imp_launches}
     print(f"  scan launches per path: {per_path}; total "
           f"{sum(per_path.values())}", flush=True)
     launches = sum(per_path.values())

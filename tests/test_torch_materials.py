@@ -4,10 +4,10 @@ materials scenes through the binned path, interop and the diagnostics
 (plasticity inside the MPM steps: tests/test_torch_plastic_mpm.py).
 
 Inputs are made with seeded numpy and handed to both packages (JAX on the
-CPU, the port on CPU tensors).  Tolerances: decompositions and models
-1e-5 (relative to the largest entry); rollouts those of
-tests/test_mpm_binned2.py (x 1e-5, v 2e-4, 5e-4 with a collider, F and Jp
-1e-5, absolute).
+CPU, the port on CPU tensors).  Tolerances: decompositions, models and
+their energy gradients 1e-5 (relative to the largest entry); rollouts
+those of tests/test_mpm_binned2.py (x 1e-5, v 2e-4, 5e-4 with a collider,
+F and Jp 1e-5, absolute).
 """
 
 import dataclasses
@@ -179,6 +179,47 @@ def test_constitutive_matches_jax(name):
         J = rng.uniform(0.5, 1.5, 64).astype(np.float32)
         _close(tm.kirchhoff_from_J(_t(J)), jm.kirchhoff_from_J(
             jnp.asarray(J)), what="kirchhoff_from_J")
+
+
+@pytest.mark.parametrize("name", ["NeoHookean", "FixedCorotated",
+                                  "StvkWithHencky", "EquationOfState",
+                                  "AnisotropicArap"])
+def test_energy_gradient_matches_jax(name):
+    """Reverse mode through every model's energy (the SVD's transposed
+    closed-form rule for three of them): the gradient of psi is JAX's and
+    is the model's own first_piola."""
+    rng = np.random.default_rng(5)
+    F = (np.eye(3) + 0.2 * rng.standard_normal((64, 3, 3))
+         ).astype(np.float32)
+    F = F[np.linalg.det(F) > 0.2]
+    jm = _jmodels()[name]
+    tm = interop.sim_from_jax(jmpm.MPMSim(model=jm, gravity=jnp.zeros(3)),
+                              CPU).model
+    got = torch.func.grad(lambda f: tm.psi(f).sum())(_t(F))
+    want = jax.jit(jax.grad(lambda f: jm.psi(f).sum()))(jnp.asarray(F))
+    _close(got, want, what=f"{name} dpsi/dF")
+    _close(got, tm.first_piola(_t(F)).numpy(), what=f"{name} dpsi/dF = P")
+
+
+@pytest.mark.parametrize("name", ["FixedCorotated", "StvkWithHencky"])
+def test_associative_von_mises_through_svd(name):
+    """AssociativeVonMises takes the derivative of the gradient of the
+    elastic energy; with an energy that goes through the SVD that is a
+    forward rule over the SVD's reverse rule.  One Newton round on a few
+    F: JAX runs it op by op (its compiled form takes minutes to build)."""
+    rng = np.random.default_rng(4)
+    amp = np.where(np.arange(8) % 2 == 0, 0.3, 0.003)
+    F = (np.eye(3) + amp[:, None, None] * rng.standard_normal((8, 3, 3))
+         ).astype(np.float32)
+    pl = jp.AssociativeVonMises(initial_stress=jnp.float32(4e3), iters=1)
+    jm = getattr(jc, name).from_young_poisson(3e5, 0.3)
+    tsim = interop.sim_from_jax(jmpm.MPMSim(model=jm, gravity=jnp.zeros(3),
+                                            plasticity=pl), CPU)
+    with jax.disable_jit():
+        jout = pl.project(jnp.asarray(F), jm)[0]
+    tout = tsim.plasticity.project(_t(F), tsim.model)[0]
+    _close(tout, jout, what=f"AssociativeVonMises over {name}")
+    assert np.abs(tout.numpy() - F).max() > 1e-3
 
 
 def test_inverted_elements_keep_the_signed_stretch():

@@ -4,16 +4,25 @@ Run from the repository root:
 
     python3 tools/profile_torch_step.py                     # elastic block
     python3 tools/profile_torch_step.py --scene dam_break   # dam break
+    python3 tools/profile_torch_step.py --scene implicit    # implicit block
 
 ``block`` (the default) builds the 262,144-particle elastic block
 (dx = 1/128) with BinnedConfig2(bins_capacity=2560, block_capacity=2048);
 ``dam_break`` the 262,144-particle dam break of bench_fluid with its bins
-derived from n, advanced 100 steps past the release.  Either warms up,
-then traces 10 steps and one rebin_adaptive with torch.profiler.  Prints
+derived from n, advanced 100 steps past the release; ``implicit`` the
+1,000,000-particle implicit block of bench_implicit (chip_smoke phase 13:
+dt 5e-4, cg_iters 50, cg_tol 1e-3).  Each warms up, then traces 10 steps
+(3 for ``implicit``) and one rebin_adaptive with torch.profiler.  Prints
 the card's name and power limit, the wall time and device time of the
 window (so the device's busy share), and the ops with the most device
 time (each op's own kernels); the full table goes to
 chiprun_out/profile_torch_step_<scene>.txt.
+
+For ``implicit`` it also times three ways to apply the force
+differential at the step's F: ``torch.func.linearize`` of the stress (its
+trace, then one application), one ``dP_dF_action`` (``torch.func.jvp``
+through the SVD), and the model's ``linearize`` (the SVD once, then
+``torch.func.jvp`` of the stress around it), which the step uses.
 """
 
 import argparse
@@ -32,9 +41,11 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import zpc_tpu_torch  # noqa: E402
 from zpc_tpu_torch import scenes  # noqa: E402
 from zpc_tpu_torch.sim import fluid_binned2 as fb  # noqa: E402
+from zpc_tpu_torch.sim import implicit_binned2 as ib2  # noqa: E402
 from zpc_tpu_torch.sim import mpm_binned2 as b2  # noqa: E402
 
 N, DX, STEPS, FLUID_WARM = 262_144, 1.0 / 128, 10, 100
+N_IMP, IMP_STEPS = 1_000_000, 3
 
 
 def _block(dev):
@@ -61,9 +72,59 @@ def _dam_break(dev):
     return step, rebin, bst
 
 
+def _implicit(dev):
+    """(step, rebin, binned state) of the implicit block."""
+    sim, st, dt = scenes.implicit_block(N_IMP, dev)
+    cfg = scenes.implicit_config(N_IMP)
+    bst = b2.bin_state(sim, st, cfg)
+    _linearize_or_jvp(sim, bst, dt)
+    return (lambda s: ib2.implicit_step_binned2(sim, s, dt, cfg,
+                                                rebin=False),
+            lambda s: b2.rebin_adaptive(sim, s, cfg), bst)
+
+
+def _events_ms(fn, reps=5):
+    fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def _linearize_or_jvp(sim, bst, dt):
+    """The force differential at the binned state's F, three ways."""
+    L = bst.cols.shape[0]
+    F = bst.cols[:, 6:15].reshape(L, 3, 3)
+    gen = torch.Generator(device=F.device).manual_seed(0)
+    dF = dt * torch.randn(L, 3, 3, generator=gen, device=F.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, lin = torch.func.linearize(sim.model.first_piola, F)
+    torch.cuda.synchronize()
+    trace_s = time.perf_counter() - t0
+    lin_ms = _events_ms(lambda: lin(dF))
+    jvp_ms = _events_ms(lambda: sim.model.dP_dF_action(F, dF))
+    step_lin = sim.model.linearize(F)
+    once_ms = _events_ms(lambda: sim.model.linearize(F))
+    apply_ms = _events_ms(lambda: step_lin(dF))
+    want = sim.model.dP_dF_action(F, dF)
+    err = max((lin(dF) - want).abs().max().item(),
+              (step_lin(dF) - want).abs().max().item())
+    print(f"force differential over {L} lanes: torch.func.linearize trace "
+          f"{trace_s:.4f} s, then {lin_ms:.4f} ms an application; "
+          f"torch.func.jvp (dP_dF_action) {jvp_ms:.4f} ms an application; "
+          f"the model's linearize (the SVD once) {once_ms:.4f} ms, then "
+          f"{apply_ms:.4f} ms an application, which the step uses (mean "
+          f"of 5; the three differ by {err:.3g})", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("block", "dam_break"),
+    ap.add_argument("--scene", choices=("block", "dam_break", "implicit"),
                     default="block")
     scene = ap.parse_args().scene
     if not torch.cuda.is_available():
@@ -74,10 +135,12 @@ def main():
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = zpc_tpu_torch.cuda_device(0)
-    step, rebin, bst = (_block if scene == "block" else _dam_break)(dev)
+    step, rebin, bst = {"block": _block, "dam_break": _dam_break,
+                        "implicit": _implicit}[scene](dev)
+    steps = IMP_STEPS if scene == "implicit" else STEPS
 
     def window(s):
-        for _ in range(STEPS):
+        for _ in range(steps):
             s = step(s)
             bool(s.needs_rebin)
         return rebin(s)
@@ -99,7 +162,7 @@ def main():
         raise RuntimeError("the profiler saw no device time: time with "
                            "CUDA events instead")
     ops = [e for e in ev if e.device_type == DeviceType.CPU]
-    print(f"{scene}: {STEPS} steps + 1 rebin: wall {wall * 1e3:.4f} ms, "
+    print(f"{scene}: {steps} steps + 1 rebin: wall {wall * 1e3:.4f} ms, "
           f"device {device_us / 1e3:.4f} ms, busy share "
           f"{device_us / 1e3 / (wall * 1e3):.4f} ({card})", flush=True)
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:15]:

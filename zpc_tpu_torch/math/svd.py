@@ -4,11 +4,15 @@ rotation convention, and the Newton polar factor of the corotated stress.
 
 Every routine is branch-free over batches, as in the JAX package: a fixed
 number of cyclic Jacobi sweeps, compare-swap sorting and ``where`` selects,
-in scalar form (one tensor per matrix entry).  Forward only; the JAX
-package's closed-form ``custom_jvp`` of ``svd3x3`` belongs to the implicit
-solver.  ``torch.linalg.svd`` is not a substitute: it returns non-negative
-singular values with a reflection in U or V, where this convention keeps
-``det U = det V = +1`` and a signed smallest singular value.
+in scalar form (one tensor per matrix entry).  ``svd3x3`` carries the JAX
+package's closed-form derivative (a ``torch.autograd.Function`` with a
+``jvp`` rule and its transpose as the ``backward``), so ``torch.func.jvp``
+of a model's stress, which the implicit solver takes, and the gradients of
+an energy, which a return map takes, never differentiate through the
+Jacobi sweeps.  ``torch.linalg.svd`` is not a substitute:
+it returns non-negative singular values with a reflection in U or V, where
+this convention keeps ``det U = det V = +1`` and a signed smallest
+singular value.
 """
 
 from __future__ import annotations
@@ -87,13 +91,7 @@ def eigh3x3(A: torch.Tensor, sweeps: int = 6):
     return torch.stack(w, -1), V
 
 
-def svd3x3(A: torch.Tensor, sweeps: int = 6):
-    """Batched 3x3 SVD in the rotation convention: ``A = U diag(s) V^T``
-    with ``det U = det V = +1`` and ``s0 >= s1 >= |s2|``, ``s2`` negative
-    for reflective A.  V from the eigenvectors of A^T A; U by normalising
-    the columns of A V, Gram-Schmidt completing a degenerate second column
-    and crossing the first two for the third; the signed ``s2`` is the
-    third column of A V projected on ``u2``."""
+def _svd3x3_impl(A: torch.Tensor, sweeps: int):
     _, V = eigh3x3(mm33(A.transpose(-1, -2), A), sweeps)
     sgn = torch.where(det3(V) < 0, -1.0, 1.0)
     V = torch.cat([V[..., :, :2], (sgn[..., None] * V[..., :, 2])[..., None]],
@@ -136,6 +134,103 @@ def svd3x3(A: torch.Tensor, sweeps: int = 6):
                      for i in range(3)], -2)
     s2 = U[..., 0, 2] * b2x + U[..., 1, 2] * b2y + U[..., 2, 2] * b2z
     return U, torch.stack([s0, s1, s2], -1), V
+
+
+def _skew(w01, w02, w12):
+    zero = torch.zeros_like(w01)
+    return torch.stack([torch.stack([zero, w01, w02], -1),
+                        torch.stack([-w01, zero, w12], -1),
+                        torch.stack([-w02, -w12, zero], -1)], -2)
+
+
+_PAIRS = ((0, 1), (0, 2), (1, 2))
+
+
+def _pair_inverses(s):
+    """Per pair i < j of singular values, the clamped inverses of
+    ``s_j - s_i`` and ``s_j + s_i`` that the differential divides by."""
+    out = []
+    for i, j in _PAIRS:
+        si, sj = s[..., i], s[..., j]
+        d, t = sj - si, sj + si
+        m2 = si * si + sj * sj + 1e-12
+        out.append((d / (d * d + 1e-8 * m2), t / (t * t + 1e-8 * m2)))
+    return out
+
+
+class _Svd3x3(torch.autograd.Function):
+    """The SVD with the JAX package's analytic differential as its forward
+    rule and that rule's transpose as its reverse rule.  With ``U^T dU =
+    Om_U`` and ``V^T dV = Om_V`` (both skew) and ``P = U^T dA V``: ``ds_i =
+    P_ii``, and per pair i < j the 2x2 system for ``x = Om_U[i, j]``, ``y
+    = Om_V[i, j]`` is solved through ``x + y = (P_ij + P_ji) / (s_j -
+    s_i)`` (singular at repeated singular values, where U and V are not
+    differentiable) and ``x - y = (P_ij - P_ji) / (s_j + s_i)`` (the part
+    R = U V^T consumes), each inverse clamped scale-invariantly so
+    repeated or opposite singular values give 0 in place of inf.  Both
+    rules are written in differentiable ops of (U, s, V), so derivatives
+    of derivatives (``jvp`` of ``grad``, as a return map through an
+    energy takes) compose as JAX's ``custom_jvp`` does.  ``factors``, when
+    given, are the SVD of A already computed: they are returned (as
+    views) in place of the sweeps."""
+
+    @staticmethod
+    def forward(A, sweeps, factors):
+        if factors is None:
+            return _svd3x3_impl(A, sweeps)
+        return tuple(f.view_as(f) for f in factors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*output)
+        ctx.save_for_backward(*output)
+
+    @staticmethod
+    def jvp(ctx, dA, _sweeps, _factors):
+        U, s, V = ctx.saved_tensors
+        P = mm33(mm33(U.transpose(-1, -2), dA), V)
+        ds = torch.stack([P[..., 0, 0], P[..., 1, 1], P[..., 2, 2]], -1)
+        om_u, om_v = [], []
+        for (i, j), (a, b) in zip(_PAIRS, _pair_inverses(s)):
+            pij, pji = P[..., i, j], P[..., j, i]
+            xpy, xmy = (pij + pji) * a, (pij - pji) * b
+            om_u.append(0.5 * (xpy + xmy))
+            om_v.append(0.5 * (xpy - xmy))
+        return mm33(U, _skew(*om_u)), ds, mm33(V, _skew(*om_v))
+
+    @staticmethod
+    def backward(ctx, gU, gs, gV):
+        U, s, V = ctx.saved_tensors
+        GU = mm33(U.transpose(-1, -2), gU)
+        GV = mm33(V.transpose(-1, -2), gV)
+        gP = [[gs[..., 0], None, None], [None, gs[..., 1], None],
+              [None, None, gs[..., 2]]]
+        for (i, j), (a, b) in zip(_PAIRS, _pair_inverses(s)):
+            gu = GU[..., i, j] - GU[..., j, i]       # <G, skew>'s weight
+            gv = GV[..., i, j] - GV[..., j, i]
+            gxpy, gxmy = 0.5 * (gu + gv) * a, 0.5 * (gu - gv) * b
+            gP[i][j], gP[j][i] = gxpy + gxmy, gxpy - gxmy
+        gP = torch.stack([torch.stack(row, -1) for row in gP], -2)
+        return mm33(mm33(U, gP), V.transpose(-1, -2)), None, None
+
+
+def svd3x3(A: torch.Tensor, sweeps: int = 6):
+    """Batched 3x3 SVD in the rotation convention: ``A = U diag(s) V^T``
+    with ``det U = det V = +1`` and ``s0 >= s1 >= |s2|``, ``s2`` negative
+    for reflective A.  V from the eigenvectors of A^T A; U by normalising
+    the columns of A V, Gram-Schmidt completing a degenerate second column
+    and crossing the first two for the third; the signed ``s2`` is the
+    third column of A V projected on ``u2``.  Derivatives, forward and
+    reverse, follow the closed form of :class:`_Svd3x3`."""
+    return _Svd3x3.apply(A, sweeps, None)
+
+
+def _svd3x3_at(A: torch.Tensor, factors):
+    """:func:`svd3x3` of A with its factors known: ``factors`` must be
+    ``svd3x3(A)`` of this very A (nothing checks it).  A derivative taken
+    again and again at one A (the implicit solver's operator) then does
+    not repeat the sweeps."""
+    return _Svd3x3.apply(A, 6, factors)
 
 
 def polar_decomposition(A: torch.Tensor, sweeps: int = 6):

@@ -5,8 +5,12 @@
 JAX run and a port run start from the same particles.  :func:`dam_break`
 is the weakly compressible dam break of ``benchmarks/run_all.py:
 bench_fluid``, :func:`materials` the four material scenes of
-``examples/materials.py:build``, and :func:`lbvh_boxes` the LBVH
-broad-phase scene of ``benchmarks/run_all.py:bench_bvh``.
+``examples/materials.py:build``, :func:`lbvh_boxes` the LBVH
+broad-phase scene of ``benchmarks/run_all.py:bench_bvh``,
+:func:`implicit_block` and :func:`implicit_config` the implicit-MPM scene
+of ``bench_implicit`` and :func:`poisson_rhs` with :func:`laplace` the CG
+Poisson problem of ``bench_poisson``.  Every scene is built on the
+caller's device.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ from .sim.mpm import MPMSim, MPMState, make_mpm_state
 from .sim.mpm_binned2 import K, BinnedConfig2
 
 __all__ = ["mpm_block", "dam_break", "dam_break_config", "materials",
-           "MATERIALS", "lbvh_boxes"]
+           "MATERIALS", "lbvh_boxes", "implicit_block", "implicit_config",
+           "poisson_rhs", "laplace"]
 
 MATERIALS = ("jello", "snow", "sand", "fluid")
 
@@ -110,17 +115,16 @@ def dam_break(n: int, device: torch.device
     return sim, st, 2e-4, cfg
 
 
-def materials(material: str, n: int = 32768, dx: float = 1.0 / 64,
-              device: torch.device = torch.device("cpu")
-              ) -> Tuple[MPMSim, MPMState, float]:
-    """One of :data:`MATERIALS`: ``default_rng(1)`` positions in a cube of
-    side 0.2 centred at 0.5, lifted by 0.15, on a slip ground plane at
-    y = 0.1 with friction 0.4.  jello: FixedCorotated (E 5e4, nu 0.3),
-    dt 2e-4; snow: FixedCorotated (E 1.4e5, nu 0.2) with SnowPlasticity
-    and Jp = 1, dt 1e-4; sand: StvkWithHencky (E 3.5e5, nu 0.3) with
-    Drucker-Prager at 35 degrees and logJp = 0, dt 1e-4; fluid:
-    EquationOfState (lam 2e4, gamma 7.15) on F, dt 2e-4.  Returns
-    ``(sim, state, dt)``."""
+def materials(material: str, n: int = 32768, dx: float = 1.0 / 64, *,
+              device: torch.device) -> Tuple[MPMSim, MPMState, float]:
+    """One of :data:`MATERIALS` on ``device``: ``default_rng(1)``
+    positions in a cube of side 0.2 centred at 0.5, lifted by 0.15, on a
+    slip ground plane at y = 0.1 with friction 0.4.  jello:
+    FixedCorotated (E 5e4, nu 0.3), dt 2e-4; snow: FixedCorotated (E
+    1.4e5, nu 0.2) with SnowPlasticity and Jp = 1, dt 1e-4; sand:
+    StvkWithHencky (E 3.5e5, nu 0.3) with Drucker-Prager at 35 degrees
+    and logJp = 0, dt 1e-4; fluid: EquationOfState (lam 2e4, gamma 7.15)
+    on F, dt 2e-4.  Returns ``(sim, state, dt)``."""
     rng = np.random.default_rng(1)
     x = rng.uniform(0.4, 0.6, (n, 3)).astype(np.float32)
     x[:, 1] += 0.15
@@ -170,3 +174,45 @@ def lbvh_boxes(n: int, device: torch.device, seed: int = 0,
     c = rng.uniform(0, 1, (n, 3)).astype(np.float32)
     h = np.full((n, 3), half, np.float32)
     return tuple(torch.from_numpy(a).to(device) for a in (c - h, c + h, c))
+
+
+def implicit_block(n: int, device: torch.device
+                   ) -> Tuple[MPMSim, MPMState, float]:
+    """The implicit-MPM scene of ``benchmarks/run_all.py:bench_implicit``:
+    :func:`mpm_block` at dx = 1/128 (a block table of 8,192 above 500,000
+    particles, else 4,096), stepped at dt = 5e-4, far above its explicit
+    CFL step.  Returns ``(sim, state, dt)``."""
+    sim, st, _ = mpm_block(n, 1.0 / 128, device,
+                           block_capacity=8192 if n > 500_000 else 4096)
+    return sim, st, 5e-4
+
+
+def implicit_config(n: int) -> BinnedConfig2:
+    """``bench_implicit``'s bin budget: 9,216 bins and an 8,192-block
+    table above 500,000 particles, else 2,560 and 2,048 (its
+    ``chunk_bins`` restructures the TPU computation only and is
+    dropped)."""
+    big = n > 500_000
+    return BinnedConfig2(bins_capacity=9216 if big else 2560,
+                         block_capacity=8192 if big else 2048)
+
+
+def poisson_rhs(n: int, device: torch.device) -> torch.Tensor:
+    """The right-hand side of ``bench_poisson``: ``default_rng(0)``
+    standard normals ``[n, n, n]`` in float32."""
+    b = np.random.default_rng(0).standard_normal((n, n, n))
+    return torch.from_numpy(b.astype(np.float32)).to(device)
+
+
+def laplace(u: torch.Tensor) -> torch.Tensor:
+    """``bench_poisson``'s matrix-free 7-point operator, 6 u minus the six
+    axis neighbours, zero outside the box (each neighbour subtracted in
+    the bench's order)."""
+    out = 6.0 * u
+    for d in range(3):
+        hi = [slice(None)] * 3
+        lo = [slice(None)] * 3
+        hi[d], lo[d] = slice(1, None), slice(None, -1)
+        out[tuple(lo)] -= u[tuple(hi)]
+        out[tuple(hi)] -= u[tuple(lo)]
+    return out

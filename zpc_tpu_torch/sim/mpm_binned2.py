@@ -26,9 +26,13 @@ through the frozen ``nbr8`` table to a block slot, and the node's cell
 within that block gives the flat index); :func:`_ctx_p2g` is one
 ``index_add_`` of (m, m v + A dx) into an ``[nb * 64 + 1, 4]``
 accumulator whose last row takes whatever falls outside;
-:func:`_grid_update`, :func:`_ctx_g2p` and :func:`_recenter` follow.  A
-state with ``Jp`` carries it as a 27th column, projected with the new F
-by ``sim.plasticity``.
+:func:`_grid_update`, :func:`_ctx_g2p` and :func:`_recenter` follow, and
+:func:`_advance` ends the elastic step from the node velocities.  A state
+with ``Jp`` carries it as a 27th column, projected with the new F by
+``sim.plasticity``.  The implicit step (``sim/implicit_binned2.py``) adds
+:func:`_ctx_p2g_affine`, a P2G of any number of plain-plus-affine
+channels, and reads :func:`_ctx_g2p` of any node field as its operator's
+gather.
 
 Not ported (TPU workarounds, see ROADMAP.md): ``chunk_bins`` (the chunked
 transfer is physics-identical to the unchunked one), ``sort_chunk``,
@@ -452,20 +456,46 @@ def _ctx_p2g(ctx: _Ctx, m: torch.Tensor, v: torch.Tensor, A: torch.Tensor):
         acc[:nb * 64, 1:].reshape(nb, 64, 3)
 
 
+def _ctx_p2g_affine(ctx: _Ctx, Q0: Optional[torch.Tensor],
+                    A: torch.Tensor) -> torch.Tensor:
+    """P2G of C channels, each a plain part plus an affine part: scatter
+    ``Q0 + A (x_i - x_p)`` (``Q0 [L, C]``, zero when None; ``A [L, C, 3]``)
+    with the stencil weights.  Returns ``[nb, 64, C]``.  The implicit step's
+    right-hand side (mass, momentum, force: 7 channels) and its operator
+    (3) ride it.  The explicit steps keep :func:`_ctx_p2g`: on this one
+    (mass as a channel with a zero affine row) they give the same bits
+    with one more device activity a step (417 against 416 elastic, 261
+    against 260 fluid) and less device time (10.40 against 10.60-10.75 ms
+    elastic, 8.84 against 9.16 ms fluid, 262,144 particles; NVIDIA H100
+    80GB HBM3 at 700 W, ``tools/step_ab.py``)."""
+    nb = ctx.grid.table.capacity
+    C = A.shape[1]
+    Ax = torch.bmm(ctx.xdiff, A.transpose(1, 2))                # [L, 27, C]
+    payload = ctx.w3[..., None] * (Ax if Q0 is None else Q0[:, None, :] + Ax)
+    acc = torch.zeros((nb * 64 + 1, C), dtype=torch.float32,
+                      device=A.device)
+    acc.index_add_(0, ctx.flat.reshape(-1), payload.reshape(-1, C))
+    return acc[:nb * 64].reshape(nb, 64, C)
+
+
+def _node_positions(ctx: _Ctx) -> torch.Tensor:
+    """World position of every node of the table's blocks ``[nb, 64, 3]``."""
+    table = ctx.grid.table
+    corners = torch.as_tensor(_CORNERS64, device=table.keys.device)
+    return (table.active_coords[:, None, :] * 4 +
+            corners[None]).to(torch.float32) * ctx.dx + ctx.grid.origin
+
+
 def _grid_update(sim: MPMSim, ctx: _Ctx, gm: torch.Tensor,
                  gmv: torch.Tensor, dt):
     """Node velocities: momentum over mass, gravity, colliders at the node
     positions, massless nodes zeroed.  Returns (gv [nb, 64, 3], max
     speed)."""
-    table = ctx.grid.table
     has_mass = gm > 0.0
     gv = torch.where(has_mass[..., None],
                      gmv / gm.clamp_min(1e-30)[..., None], 0.0)
     gv = gv + dt * sim.gravity
-    corners = torch.as_tensor(_CORNERS64, device=gm.device)
-    node_x = (table.active_coords[:, None, :] * 4 +
-              corners[None]).to(torch.float32) * ctx.dx + ctx.grid.origin
-    gv = resolve_boundaries(sim.colliders, node_x, gv)
+    gv = resolve_boundaries(sim.colliders, _node_positions(ctx), gv)
     gv = torch.where(has_mass[..., None], gv, 0.0)
     return gv, torch.sqrt(torch.max(torch.sum(gv * gv, -1)))
 
@@ -505,34 +535,31 @@ def _recenter(ctx: _Ctx, x_new: torch.Tensor):
     return grid, escaped
 
 
-def explicit_step_binned2(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
-                          *, rebin: bool = True) -> BinState:
-    """One explicit APIC step on a :class:`BinState` (bin order in and
-    out); ``rebin=True`` re-sorts first.  With a Jp column and
-    ``sim.plasticity`` the new F is projected and Jp updated, as in the
-    JAX package (whose binned step, like this one, has no FLIP blend)."""
-    if rebin:
-        st = _rebin(sim, st, cfg)
-    ctx = _make_ctx(st, cfg)
+def _lanes(st: BinState, ctx: _Ctx):
+    """The elastic layout's lane columns: (x, v, F, C, m, vol), m and vol
+    zero on dead lanes."""
     L = st.cols.shape[0]
     lay = _col_layout(3)
     cols = st.cols
-    xb, vb = cols[:, 0:3], cols[:, 3:6]
-    Fb = cols[:, 6:15].reshape(L, 3, 3)
-    Cb = cols[:, 15:24].reshape(L, 3, 3)
-    alive = ctx.alive
-    m = torch.where(alive, cols[:, lay["m"]], 0.0)
-    vol = torch.where(alive, cols[:, lay["vol"]], 0.0)
+    return (cols[:, 0:3], cols[:, 3:6], cols[:, 6:15].reshape(L, 3, 3),
+            cols[:, 15:24].reshape(L, 3, 3),
+            torch.where(ctx.alive, cols[:, lay["m"]], 0.0),
+            torch.where(ctx.alive, cols[:, lay["vol"]], 0.0))
 
-    tau = sim.model.kirchhoff(Fb)
-    A = m[:, None, None] * Cb - (dt * ctx.dinv * vol)[:, None, None] * tau
-    gm, gmv = _ctx_p2g(ctx, m, vb, A)
-    gv, max_vel = _grid_update(sim, ctx, gm, gmv, dt)
+
+def _advance(sim: MPMSim, st: BinState, ctx: _Ctx, lanes, gm: torch.Tensor,
+             gv: torch.Tensor, max_vel: torch.Tensor, dt) -> BinState:
+    """G2P from the node velocities ``gv``, F update (projected by
+    ``sim.plasticity`` with a Jp column), advection and recentering: the
+    end of a step, shared by the explicit and the implicit step."""
+    xb, vb, Fb, Cb, m, vol = lanes
+    L = st.cols.shape[0]
+    alive = ctx.alive
     v_new, C_new = _ctx_g2p(ctx, gv)
-    eye = torch.eye(3, dtype=torch.float32, device=cols.device)
+    eye = torch.eye(3, dtype=torch.float32, device=st.cols.device)
     F_new = mm33(eye + dt * C_new, Fb)
     if st.has_jp:
-        Jpb = cols[:, lay["Jp"]]
+        Jpb = st.cols[:, _col_layout(3)["Jp"]]
         Jp_new = Jpb
         if sim.plasticity is not None:
             F_new, Jp_new = sim.plasticity.project(F_new, Jpb)
@@ -550,6 +577,24 @@ def explicit_step_binned2(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
     return dataclasses.replace(st, cols=torch.cat(newcols, dim=1), grid=grid,
                                max_vel=max_vel, overflow=ctx.overflow,
                                needs_rebin=escaped)
+
+
+def explicit_step_binned2(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
+                          *, rebin: bool = True) -> BinState:
+    """One explicit APIC step on a :class:`BinState` (bin order in and
+    out); ``rebin=True`` re-sorts first.  With a Jp column and
+    ``sim.plasticity`` the new F is projected and Jp updated, as in the
+    JAX package (whose binned step, like this one, has no FLIP blend)."""
+    if rebin:
+        st = _rebin(sim, st, cfg)
+    ctx = _make_ctx(st, cfg)
+    lanes = _lanes(st, ctx)
+    _, vb, Fb, Cb, m, vol = lanes
+    tau = sim.model.kirchhoff(Fb)
+    A = m[:, None, None] * Cb - (dt * ctx.dinv * vol)[:, None, None] * tau
+    gm, gmv = _ctx_p2g(ctx, m, vb, A)
+    gv, max_vel = _grid_update(sim, ctx, gm, gmv, dt)
+    return _advance(sim, st, ctx, lanes, gm, gv, max_vel, dt)
 
 
 def adaptive_chain(step_fn: Callable[[BinState], BinState],
