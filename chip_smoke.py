@@ -2,9 +2,11 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Four paths run at full width: the explicit-MPM elastic block, the LBVH
-broad phase, the weakly compressible dam break and the implicit-MPM block
-(BASELINE config 5 without contact); the four materials of
+Five paths run at full width: the explicit-MPM elastic block, the LBVH
+broad phase, the weakly compressible dam break, the implicit-MPM block
+(BASELINE config 5 without contact) and the same block over a mesh with
+IPC contact (config 5 as specified, over a two-triangle floor and over
+the bench's two heightfields); the four materials of
 examples/materials.py run at their own size, and the CG Poisson solve of
 BASELINE config 2 at its bench size.  Phases (each prints its
 results; a failed check raises and the script exits non-zero; nothing is
@@ -80,11 +82,33 @@ caught):
    summation order);
 15. CG Poisson: 100 iterations at 32^3 on the card against the CPU
    (within 1e-5 of max |x|), then at 128^3 timed (best of 3): ms,
-   iterations/s and GB/s under bench_poisson's byte model.
+   iterations/s and GB/s under bench_poisson's byte model;
+16. contact at full width: phase 13's block over a two-triangle floor at
+   y = 0.57 spanning [0, 1]^2 with MeshContact.build(dhat=0.01,
+   kappa=10.0, max_tris=8) (bench_implicit's values), bin_state, one step
+   with its CG count, a 10-step adaptive_chain and one rebin, every scan
+   replayed; the gates: no overflow, finite columns, particle mass
+   unchanged, grid mass within 1e-4, the broad phase's hits, counts and
+   band flags equal to the CPU port's on the same bin state, the mean v_y
+   of the particles within dhat of the floor after one step above the
+   contact-free step's, no particle below the floor; then the chain best
+   of 3 beside phase 13's;
+17. BASELINE config 5's contact rows as specified: the bench's
+   heightfields of 2,048 and 100,352 triangles under the same block,
+   each with its overflow flag (printed, not gated; equal to the CPU
+   port's on the same bin state), its live bins truncated and out of
+   band, CG iterations and ms/step best of 3 of a 10-step chain; gated on
+   finite columns and mass;
+18. contact card against CPU: tests/test_contact_implicit.py's 100-step
+   scene (512 particles, dx 0.05, 96 bins, floor at 0.2, dhat 0.02, kappa
+   2e4, max_tris 4, use_ccd, dt 2e-3) for 20 steps, then one
+   contact_precond step, on CUDA and on the CPU (CG iterations equal
+   within 1; x, v, F within phase 14's tolerances plus the CPU's own
+   spread over summation order; no particle below floor - dhat).
 
-The scan's launches in the kernel record are those of phases 4, 10, 12
-and 13 (a line before gives them per path).  The last two lines are the kernel
-record and the contract line ``{"ok": true, "device": {...}}``.
+The scan's launches in the kernel record are those of phases 4, 10, 12,
+13 and 16 (a line before gives them per path).  The last two lines are the
+kernel record and the contract line ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -112,7 +136,9 @@ from zpc_tpu_torch.containers import bvh as bvh_mod  # noqa: E402
 from zpc_tpu_torch.ops import nse as nse_op  # noqa: E402
 from zpc_tpu_torch.ops import scan as scan_op  # noqa: E402
 from zpc_tpu_torch.math import solvers  # noqa: E402
+from zpc_tpu_torch.models.constitutive import FixedCorotated  # noqa: E402
 from zpc_tpu_torch.parallel import primitives  # noqa: E402
+from zpc_tpu_torch.sim import contact_implicit as ci  # noqa: E402
 from zpc_tpu_torch.sim import fluid as fl  # noqa: E402
 from zpc_tpu_torch.sim import fluid_binned2 as fb  # noqa: E402
 from zpc_tpu_torch.sim import implicit_binned2 as ib2  # noqa: E402
@@ -156,6 +182,14 @@ TPU_CG_ITERS = 4                      # BENCHMARKS.md:107, TPU v5e
 IMP_SMALL_STEPS = 20
 TOL_IMP = dict(x=1e-6, v=5e-4, F=1e-5)
 N_POISSON, POISSON_ITERS, N_POISSON_SMALL = 128, 100, 32
+# mesh contact (scenes.contact_block: bench_implicit's barrier): the floor
+# under phase 13's block (its particles start at y >= 0.575); the bench's
+# two heightfields (2,048 and 100,352 triangles); the small scene of
+# tests/test_contact_implicit.py's 100-step test for the card against the
+# CPU
+FLOOR_Y = 0.57
+TERRAIN_RES = (32, 224)
+N_CSMALL, CSMALL_STEPS, CSMALL_FLOOR, CSMALL_DHAT = 512, 20, 0.2, 0.02
 HBM_BYTES_PER_MS = 3.35e12 / 1e3     # H100 SXM HBM3 rate (data sheet)
 _WINDOW = "timed calls"               # the profiler window of device_split
 
@@ -1241,22 +1275,15 @@ def implicit_path(dev, card):
     check(abs(vy - vff) <= 0.01 * abs(vff),
           f"mean v_y {vy:.6f} within 1% of free fall {vff:.6f}")
 
-    def timed_chain():
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        o = b2.adaptive_chain(step, rebin, bst, IMP_CHAIN)
-        e1.record()
-        torch.cuda.synchronize()
+    times, outs = _timed_chains(step, rebin, bst)
+    for o in outs:
         check(not bool(o.overflow), "timed chain: no overflow")
-        return e0.elapsed_time(e1) / IMP_CHAIN
-    times = [timed_chain() for _ in range(3)]
     ms = min(times)
     print(f"  {IMP_CHAIN}-step chain best of 3: {ms:.4f} ms/step = "
           f"{N_IMP / ms / 1e3:.4f} M particle-steps/s (chains "
           f"{', '.join(f'{t:.4f}' for t in times)} ms/step; CG iterations "
           f"per step {iters[-IMP_CHAIN:]}; {card})", flush=True)
-    return launches
+    return launches, ms
 
 
 def _implicit_small(dev, reverse=False):
@@ -1339,6 +1366,276 @@ def poisson(dev, card):
     return ms
 
 
+def _timed_chains(step, rebin, bst, reps=3):
+    """ms/step of ``reps`` IMP_CHAIN-step chains from ``bst`` (CUDA
+    events), and each chain's final state."""
+    times, outs = [], []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        outs.append(b2.adaptive_chain(step, rebin, bst, IMP_CHAIN))
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / IMP_CHAIN)
+    return times, outs
+
+
+def _bin_query(mc, bst, cfg):
+    """The broad phase of ``mc`` per bin on ``bst``: (live, hits, counts,
+    in_band)."""
+    ctx = b2._make_ctx(bst, cfg)
+    return mc._bin_query(ctx, ctx.alive.view(cfg.bins_capacity, b2.K))
+
+
+def _bin_query_cpu(tri, mc, bst, cfg):
+    """The same broad phase by the CPU port: the mesh built anew there, the
+    bin state copied."""
+    cpu = torch.device("cpu")
+    mcc = ci.MeshContact.build(tri.cpu(), mc.dhat, mc.kappa,
+                               max_tris=mc.max_tris)
+    return _bin_query(mcc, _to_device(bst, cpu), cfg)
+
+
+def _query_counts(mc, query):
+    """(live bins, bins with a triangle in reach, truncated, out of band,
+    the most candidates of one bin, the overflow flag) of a
+    :func:`_bin_query` result."""
+    live, _, counts, band = (a.cpu() for a in query)
+    trunc = live & (counts > mc.max_tris)
+    return (int(live.sum()), int((live & (counts > 0)).sum()),
+            int(trunc.sum()), int((live & ~band).sum()),
+            int(torch.where(live, counts, 0).max()),
+            bool((trunc | (live & ~band)).any()))
+
+
+def _mass_gates(st, m0, n, what):
+    """Finite columns, every particle alive, particle mass unchanged, grid
+    mass within 1e-4 of particle mass on ``st``'s step."""
+    check(bool(torch.isfinite(st.cols).all()), f"{what}: every column "
+                                               f"finite")
+    cols = _alive_cols(st)
+    check(cols.shape[0] == n, f"{what}: every particle alive in bin order")
+    m1 = cols[:, 24].double().sum().item()
+    check(abs(m1 - m0) <= 1e-9 * m0,
+          f"{what}: particle mass unchanged ({m1:.9g})")
+    gmass = st.grid.data["m"].double().sum().item()
+    check(abs(gmass - m1) <= 1e-4 * m1,
+          f"{what}: grid mass {gmass:.9g} within 1e-4 of particle mass")
+
+
+def contact_path(dev, card, free_ms):
+    phase("16 contact at full width")
+    tri = scenes.floor_mesh(FLOOR_Y, 0.0, 1.0, dev)
+    sim, st, dt, cfg, mc = scenes.contact_block(N_IMP, tri, dev)
+    print(f"  {N_IMP} particles (phase 13's block) over a 2-triangle floor "
+          f"at y = {FLOOR_Y} spanning [0, 1]^2: dhat {mc.dhat}, kappa "
+          f"{mc.kappa}, max_tris {mc.max_tris}, dt {dt}, cg_iters "
+          f"{CG_ITERS}, cg_tol {CG_TOL}", flush=True)
+    m0 = st.particles["m"].double().sum().item()
+    iters, rebins, last = [], [0], {}
+
+    def step(s):
+        out, it = ib2.implicit_step_binned2(
+            sim, s, dt, cfg, cg_iters=CG_ITERS, cg_tol=CG_TOL, contact=mc,
+            rebin=False, with_stats=True)
+        iters.append(it)
+        last["st"] = out
+        return out
+
+    def rebin(s):
+        rebins[0] += 1
+        return b2.rebin_adaptive(sim, s, cfg)
+
+    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    with recorded_scans() as calls:
+        bst = b2.bin_state(sim, st, cfg)
+        torch.cuda.synchronize()
+        launches_bin = scan_op.LAUNCHES
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        one, it0 = ib2.implicit_step_binned2(
+            sim, bst, dt, cfg, cg_iters=CG_ITERS, cg_tol=CG_TOL, contact=mc,
+            rebin=False, with_stats=True)
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        out = b2.adaptive_chain(step, rebin, bst, IMP_CHAIN)
+        torch.cuda.synchronize()
+        launches_chain = scan_op.LAUNCHES - launches_bin
+        reb = b2.rebin_adaptive(sim, out, cfg)
+        torch.cuda.synchronize()
+    launches = scan_op.LAUNCHES
+    check(nse_op.LAUNCHES == 0, "the contact path launched no NSE kernel "
+                                "(its tree is the complete one)")
+    print(f"  one step: {it0} CG iterations; {IMP_CHAIN}-step chain: CG "
+          f"iterations per step {iters}, {rebins[0]} rebins; scan launches "
+          f"{launches}: {launches_bin} in bin_state, {launches_chain} in "
+          f"the chain, {launches - launches_bin - launches_chain} in the "
+          f"final rebin", flush=True)
+    check(launches_bin > 0 and launches > launches_bin + launches_chain,
+          "bin_state and the final rebin launched the scan kernel")
+    check(len(calls) == launches, f"{len(calls)} scans recorded")
+    sizes = replay_scans(calls)
+    check(True, f"every contact-path scan = plain on the same input, ints "
+                f"exact; (n, op): {sizes}")
+    check(not bool(one.overflow) and not bool(out.overflow)
+          and not bool(reb.overflow),
+          "no overflow (the broad phase's flag included; chain and rebin)")
+    _mass_gates(one, m0, N_IMP, "one step")
+    _mass_gates(last["st"], m0, N_IMP, "chain's last step")
+
+    q = _bin_query(mc, bst, cfg)
+    qc = _bin_query_cpu(tri, mc, bst, cfg)
+    for name, a, b in zip(("live", "hits", "counts", "in_band"), q, qc):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"broad phase on the card differs from the "
+                                 f"CPU's in {name}")
+    nlive, reach, trunc, oob, most, _ = _query_counts(mc, q)
+    check(True, f"broad phase on the card = the CPU port's on the same bin "
+                f"state (hits, counts, band flags): {nlive} live bins, "
+                f"{reach} with a triangle in reach, {trunc} truncated, "
+                f"{oob} out of band, at most {most} candidates")
+
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    free, _ = ib2.implicit_step_binned2(sim, bst, dt, cfg, cg_iters=CG_ITERS,
+                                        cg_tol=CG_TOL, rebin=False,
+                                        with_stats=True)
+    peak_free = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    print(f"  peak device memory one step allocates above what was held: "
+          f"{peak:.4f} GiB with contact, {peak_free:.4f} GiB without "
+          f"({card})", flush=True)
+    near = (bst.pid >= 0) & (bst.cols[:, 1] < FLOOR_Y + mc.dhat)
+    vy_c = one.cols[near, 4].double().mean().item()
+    vy_f = free.cols[near, 4].double().mean().item()
+    check(int(near.sum()) > 0 and vy_c > vy_f,
+          f"after one step the {int(near.sum())} particles within dhat of "
+          f"the floor fall slower with contact: mean v_y {vy_c:.6f} > "
+          f"{vy_f:.6f} without")
+    ymin = _alive_cols(out)[:, 1].min().item()
+    check(ymin > FLOOR_Y, f"no particle below the floor after the chain "
+                          f"(min y {ymin:.6f} > {FLOOR_Y})")
+
+    times, outs = _timed_chains(step, rebin, bst)
+    check(not any(bool(o.overflow) for o in outs),
+          "timed chains: no overflow")
+    ms = min(times)
+    print(f"  {IMP_CHAIN}-step chain best of 3: {ms:.4f} ms/step = "
+          f"{N_IMP / ms / 1e3:.4f} M particle-steps/s (chains "
+          f"{', '.join(f'{t:.4f}' for t in times)} ms/step; CG iterations "
+          f"per step {iters[-IMP_CHAIN:]}); phase 13 without contact "
+          f"{free_ms:.4f} ms/step: contact costs {ms - free_ms:.4f} ms a "
+          f"step ({card})", flush=True)
+    return launches
+
+
+def config5_rows(dev, card):
+    phase("17 config 5's contact rows as specified")
+    for res in TERRAIN_RES:
+        tri = scenes.terrain_mesh(res, dev)
+        sim, st, dt, cfg, mc = scenes.contact_block(N_IMP, tri, dev)
+        m0 = st.particles["m"].double().sum().item()
+        bst = b2.bin_state(sim, st, cfg)
+        counts = _query_counts(mc, _bin_query(mc, bst, cfg))
+        counts_c = _query_counts(mc, _bin_query_cpu(tri, mc, bst, cfg))
+        flag = counts[5]
+        check(flag == counts_c[5],
+              f"{tri.shape[0]} triangles: the overflow flag on the card "
+              f"({flag}) = the CPU port's on the same bin state; live bins "
+              f"{counts[0]}, {counts[1]} with a triangle in reach, "
+              f"{counts[2]} truncated (> {mc.max_tris} candidates), "
+              f"{counts[3]} out of band, at most {counts[4]} candidates "
+              f"(CPU: {counts_c[:5]})")
+        iters = []
+
+        def step(s):
+            out, it = ib2.implicit_step_binned2(
+                sim, s, dt, cfg, cg_iters=CG_ITERS, cg_tol=CG_TOL,
+                contact=mc, rebin=False, with_stats=True)
+            iters.append(it)
+            return out
+        one = step(bst)
+        print(f"  one step: overflow flag {bool(one.overflow)} (printed, "
+              f"not gated), {iters[0]} CG iterations", flush=True)
+        _mass_gates(one, m0, N_IMP, f"{tri.shape[0]} triangles, one step")
+        times, outs = _timed_chains(
+            step, lambda s: b2.rebin_adaptive(sim, s, cfg), bst)
+        check(all(bool(torch.isfinite(o.cols).all()) for o in outs),
+              f"{tri.shape[0]} triangles: the chains' columns finite")
+        ms = min(times)
+        print(f"  config 5 + LBVH contact, {tri.shape[0]} triangles: "
+              f"{ms:.4f} ms/step best of 3 = {N_IMP / ms / 1e3:.4f} M "
+              f"particle-steps/s (chains "
+              f"{', '.join(f'{t:.4f}' for t in times)} ms/step; CG "
+              f"iterations per step {iters[-IMP_CHAIN:]}; overflow "
+              f"{flag}; {card})", flush=True)
+
+
+def _contact_small(dev, reverse=False):
+    """tests/test_contact_implicit.py's 100-step scene for CSMALL_STEPS
+    steps, then one contact_precond step; ``reverse`` feeds the particles
+    in reverse order.  Returns (state after the chain, state after the
+    precond step, in the scene's order; CG iterations per step; min y
+    over the run)."""
+    rng = np.random.default_rng(42)
+    x = np.stack([rng.uniform(0.3, 0.7, N_CSMALL),
+                  rng.uniform(0.22, 0.42, N_CSMALL),
+                  rng.uniform(0.3, 0.7, N_CSMALL)], -1).astype(np.float32)
+    if reverse:
+        x = np.ascontiguousarray(x[::-1])
+    st = mpm_mod.make_mpm_state(x, dx=0.05, device=dev, block_capacity=512)
+    sim = mpm_mod.MPMSim(
+        model=FixedCorotated.from_young_poisson(1e4, 0.3, device=dev),
+        gravity=torch.tensor([0.0, -9.8, 0.0], device=dev))
+    cfg = b2.BinnedConfig2(bins_capacity=96)
+    mc = ci.MeshContact.build(
+        scenes.floor_mesh(CSMALL_FLOOR, -1.0, 2.0, dev), CSMALL_DHAT, 2e4,
+        max_tris=4, use_ccd=True)
+    iters, ymin, overflow = [], [np.inf], []
+
+    def step(s, **kw):
+        s, it = ib2.implicit_step_binned2(sim, s, 2e-3, cfg, cg_iters=30,
+                                          contact=mc, with_stats=True, **kw)
+        iters.append(it)
+        ymin[0] = min(ymin[0], _alive_cols(s)[:, 1].min().item())
+        overflow.append(bool(s.overflow))
+        return s
+    out = b2.adaptive_chain(lambda s: step(s, rebin=False),
+                            lambda s: b2.rebin_adaptive(sim, s, cfg),
+                            b2.bin_state(sim, st, cfg), CSMALL_STEPS)
+    pre = step(out, rebin=True, contact_precond=True)
+    check(not any(overflow), f"{dev}: no overflow in any step")
+
+    def channels(s):
+        ch = b2.unbin_state(s, st).particles.channels
+        return {k: (v.flip(0) if reverse else v).cpu()
+                for k, v in ch.items()}
+    return channels(out), channels(pre), iters, ymin[0]
+
+
+def contact_card_vs_cpu(dev):
+    phase("18 contact card against CPU, same port")
+    g, gp, g_it, gy = _contact_small(dev)
+    c, cp, c_it, cy = _contact_small(torch.device("cpu"))
+    r, rp, r_it, _ = _contact_small(torch.device("cpu"), reverse=True)
+    print(f"  CG iterations per step ({CSMALL_STEPS} steps, then the "
+          f"contact_precond step): card {g_it}, CPU {c_it}, CPU reversed "
+          f"{r_it}", flush=True)
+    check(all(abs(a - b) <= 1 for a, b in zip(g_it, c_it)),
+          "CG iterations per step equal within 1")
+    floor = CSMALL_FLOOR - CSMALL_DHAT
+    check(gy > floor and cy > floor,
+          f"no particle below floor - dhat = {floor} (min y: card {gy:.6f}, "
+          f"CPU {cy:.6f})")
+    for what, (a, b, rev) in (("chain", (g, c, r)),
+                              ("contact_precond step", (gp, cp, rp))):
+        for k in ("x", "v", "F"):
+            spread = (rev[k] - b[k]).abs().max().item()
+            err = (a[k] - b[k]).abs().max().item()
+            check(err <= TOL_IMP[k] + spread,
+                  f"{what}: {k} max abs diff {err:.3g} <= {TOL_IMP[k]} + the "
+                  f"CPU's own spread over summation order {spread:.3g}")
+
+
 def main():
     card = environment()
     dev = zpc_tpu_torch.cuda_device(0)
@@ -1354,13 +1651,17 @@ def main():
     fluid_launches, _ = dam_break_path(dev, card)
     fluid_card_vs_cpu(dev)
     mat_launches = materials_path(dev, card)
-    imp_launches = implicit_path(dev, card)
+    imp_launches, imp_ms = implicit_path(dev, card)
     implicit_card_vs_cpu(dev)
     poisson(dev, card)
+    contact_launches = contact_path(dev, card, imp_ms)
+    config5_rows(dev, card)
+    contact_card_vs_cpu(dev)
     per_path = {"elastic block (phase 4)": launches,
                 "dam break (phase 10)": fluid_launches,
                 "materials (phase 12)": mat_launches,
-                "implicit block (phase 13)": imp_launches}
+                "implicit block (phase 13)": imp_launches,
+                "mesh contact (phase 16)": contact_launches}
     print(f"  scan launches per path: {per_path}; total "
           f"{sum(per_path.values())}", flush=True)
     launches = sum(per_path.values())

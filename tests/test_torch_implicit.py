@@ -352,20 +352,6 @@ def test_implicit_rollout_binned2_matches_jax(jax_binned):
     assert iters == j["iters5"]
 
 
-@pytest.mark.parametrize("how", ["contact", "contact_precond", "rollout"])
-def test_contact_is_not_ported(how):
-    sim, st, dt = scenes.mpm_block(256, 1.0 / 32, CPU, block_capacity=256)
-    cfg = tb2.BinnedConfig2(bins_capacity=16, block_capacity=256)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
-        if how == "rollout":
-            ti2.implicit_rollout_binned2(sim, st, dt, cfg, 1,
-                                         contact=object())
-        else:
-            ti2.implicit_step_binned2(
-                sim, st, dt, cfg, contact=object() if how == "contact"
-                else None, contact_precond=how == "contact_precond")
-
-
 def test_implicit_scenes():
     sim, st, dt = scenes.implicit_block(4096, CPU)
     assert dt == 5e-4 and st.grid.block_capacity == 4096

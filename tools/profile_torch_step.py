@@ -5,18 +5,27 @@ Run from the repository root:
     python3 tools/profile_torch_step.py                     # elastic block
     python3 tools/profile_torch_step.py --scene dam_break   # dam break
     python3 tools/profile_torch_step.py --scene implicit    # implicit block
+    python3 tools/profile_torch_step.py --scene contact     # + mesh contact
 
 ``block`` (the default) builds the 262,144-particle elastic block
 (dx = 1/128) with BinnedConfig2(bins_capacity=2560, block_capacity=2048);
 ``dam_break`` the 262,144-particle dam break of bench_fluid with its bins
 derived from n, advanced 100 steps past the release; ``implicit`` the
 1,000,000-particle implicit block of bench_implicit (chip_smoke phase 13:
-dt 5e-4, cg_iters 50, cg_tol 1e-3).  Each warms up, then traces 10 steps
-(3 for ``implicit``) and one rebin_adaptive with torch.profiler.  Prints
+dt 5e-4, cg_iters 50, cg_tol 1e-3); ``contact`` the same block over
+chip_smoke phase 16's floor (two triangles at y = 0.57 spanning [0, 1]^2,
+MeshContact dhat 0.01, kappa 10, max_tris 8).  Each warms up, then traces
+10 steps (3 for ``implicit`` and ``contact``) and one rebin_adaptive with
+torch.profiler.  Prints
 the card's name and power limit, the wall time and device time of the
 window (so the device's busy share), and the ops with the most device
 time (each op's own kernels); the full table goes to
 chiprun_out/profile_torch_step_<scene>.txt.
+
+For ``contact`` it also times the contact's parts on the binned state
+(CUDA events, mean of 5): the context, the broad phase, the narrow
+phase's forces and Hessians, one ``dt^2 H_c s0`` product of an operator
+application, and the 32-iteration CCD that ``use_ccd`` adds.
 
 For ``implicit`` it also times three ways to apply the force
 differential at the step's F: ``torch.func.linearize`` of the stress (its
@@ -83,6 +92,43 @@ def _implicit(dev):
             lambda s: b2.rebin_adaptive(sim, s, cfg), bst)
 
 
+def _contact(dev):
+    """(step, rebin, binned state) of the implicit block over the floor."""
+    sim, st, dt, cfg, mc = scenes.contact_block(
+        N_IMP, scenes.floor_mesh(0.57, 0.0, 1.0, dev), dev)
+    bst = b2.bin_state(sim, st, cfg)
+    _contact_parts(mc, bst, cfg, dt)
+    return (lambda s: ib2.implicit_step_binned2(sim, s, dt, cfg, contact=mc,
+                                                rebin=False),
+            lambda s: b2.rebin_adaptive(sim, s, cfg), bst)
+
+
+def _contact_parts(mc, bst, cfg, dt):
+    """The contact's parts on ``bst``, each timed alone."""
+    B, K = cfg.bins_capacity, b2.K
+    ctx = b2._make_ctx(bst, cfg)
+    alive = ctx.alive.view(B, K)
+    xb = bst.cols[:, 0:3].view(B, K, 3)
+    disp = (dt * bst.cols[:, 3:6]).view(B, K, 3)
+    cset = mc.broad_phase(ctx, alive)
+    _, Hc = mc.forces_and_hessians(cset, xb, alive)
+    Hc = Hc.view(-1, 3, 3)
+    s0 = bst.cols[:, 3:6]
+    parts = {
+        "context (_make_ctx)": lambda: b2._make_ctx(bst, cfg),
+        "broad phase": lambda: mc.broad_phase(ctx, alive),
+        "forces and Hessians": lambda: mc.forces_and_hessians(cset, xb,
+                                                              alive),
+        "dt^2 H_c s0 (one operator application)":
+            lambda: (dt * dt) * torch.bmm(Hc, s0[..., None])[..., 0],
+        "CCD toi (use_ccd, 32 iterations)":
+            lambda: mc.toi(cset, xb, disp, alive)}
+    print(f"contact parts at {B * K} lanes x {mc.max_tris} slots, "
+          f"{int(alive.any(1).sum())} live bins (mean of 5): " + "; ".join(
+              f"{k} {_events_ms(f):.4f} ms" for k, f in parts.items()),
+          flush=True)
+
+
 def _events_ms(fn, reps=5):
     fn()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -124,8 +170,8 @@ def _linearize_or_jvp(sim, bst, dt):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("block", "dam_break", "implicit"),
-                    default="block")
+    ap.add_argument("--scene", choices=("block", "dam_break", "implicit",
+                                        "contact"), default="block")
     scene = ap.parse_args().scene
     if not torch.cuda.is_available():
         raise RuntimeError("this probe needs an NVIDIA GPU")
@@ -136,8 +182,8 @@ def main():
     print(card, flush=True)
     dev = zpc_tpu_torch.cuda_device(0)
     step, rebin, bst = {"block": _block, "dam_break": _dam_break,
-                        "implicit": _implicit}[scene](dev)
-    steps = IMP_STEPS if scene == "implicit" else STEPS
+                        "implicit": _implicit, "contact": _contact}[scene](dev)
+    steps = IMP_STEPS if scene in ("implicit", "contact") else STEPS
 
     def window(s):
         for _ in range(steps):

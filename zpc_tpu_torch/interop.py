@@ -4,7 +4,8 @@ The converters read the JAX package's dataclasses through ``numpy.asarray``
 and class names only, so this module imports no JAX: a caller that holds
 ``zpc_tpu`` objects already has JAX loaded.  Supported: the explicit MPM
 family (every elastic and plasticity model, FLIP, elastic, plastic and
-fluid states and bin states) and the LBVH; anything else raises.
+fluid states and bin states), the LBVH and the implicit step's mesh
+contact (``MeshContact``, ``ContactSet``); anything else raises.
 """
 
 from __future__ import annotations
@@ -22,12 +23,13 @@ from .geometry.levelset import ComplementLevelSet, Cuboid, HalfSpace
 from .geometry.sparse_grid import SparseGrid
 from .math.transform import Transform
 from .models import constitutive, plasticity
+from .sim.contact_implicit import ContactSet, MeshContact
 from .sim.mpm import MPMSim, MPMState
 from .sim.mpm_binned2 import BinnedConfig2, BinState
 
 __all__ = ["sim_from_jax", "config_from_jax", "state_from_jax",
            "binstate_from_jax", "state_to_numpy", "lbvh_from_jax",
-           "lbvh_to_numpy"]
+           "lbvh_to_numpy", "mesh_contact_from_jax", "contact_set_from_jax"]
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -173,3 +175,18 @@ def lbvh_to_numpy(bvh) -> dict:
         out[k] = (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
                   else np.asarray(a))
     return out
+
+
+def mesh_contact_from_jax(mc, device: torch.device) -> MeshContact:
+    """``zpc_tpu.sim.contact_implicit.MeshContact`` -> :class:`MeshContact`
+    on ``device``: the triangles, the tree (:func:`lbvh_from_jax`) and the
+    static fields as they are."""
+    return MeshContact(_tensor(mc.tri, device), lbvh_from_jax(mc.bvh, device),
+                       float(mc.dhat), float(mc.kappa), int(mc.max_tris),
+                       int(mc.tile), bool(mc.use_ccd))
+
+
+def contact_set_from_jax(cs, device: torch.device) -> ContactSet:
+    """``zpc_tpu.sim.contact_implicit.ContactSet`` -> :class:`ContactSet`
+    on ``device``."""
+    return ContactSet(_tensor(cs.hits, device), _tensor(cs.overflow, device))

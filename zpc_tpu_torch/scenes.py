@@ -8,9 +8,12 @@ bench_fluid``, :func:`materials` the four material scenes of
 ``examples/materials.py:build``, :func:`lbvh_boxes` the LBVH
 broad-phase scene of ``benchmarks/run_all.py:bench_bvh``,
 :func:`implicit_block` and :func:`implicit_config` the implicit-MPM scene
-of ``bench_implicit`` and :func:`poisson_rhs` with :func:`laplace` the CG
-Poisson problem of ``bench_poisson``.  Every scene is built on the
-caller's device.
+of ``bench_implicit``, :func:`terrain_mesh` its mesh-contact heightfield
+(``benchmarks/run_all.py:_terrain_mesh``), :func:`floor_mesh` the
+two-triangle floor of ``tests/test_contact_implicit.py`` and
+:func:`contact_block` the two together, and :func:`poisson_rhs` with
+:func:`laplace` the CG Poisson problem of ``bench_poisson``.  Every scene
+is built on the caller's device.
 """
 
 from __future__ import annotations
@@ -27,13 +30,15 @@ from .models.cfl import timestep_linear_elasticity
 from .models.constitutive import (EquationOfState, FixedCorotated,
                                   StvkWithHencky, lame_parameters)
 from .models.plasticity import DruckerPrager, SnowPlasticity
+from .sim.contact_implicit import MeshContact
 from .sim.fluid import make_fluid_state
 from .sim.mpm import MPMSim, MPMState, make_mpm_state
 from .sim.mpm_binned2 import K, BinnedConfig2
 
 __all__ = ["mpm_block", "dam_break", "dam_break_config", "materials",
            "MATERIALS", "lbvh_boxes", "implicit_block", "implicit_config",
-           "poisson_rhs", "laplace"]
+           "terrain_mesh", "floor_mesh", "contact_block", "poisson_rhs",
+           "laplace"]
 
 MATERIALS = ("jello", "snow", "sand", "fluid")
 
@@ -195,6 +200,45 @@ def implicit_config(n: int) -> BinnedConfig2:
     big = n > 500_000
     return BinnedConfig2(bins_capacity=9216 if big else 2560,
                          block_capacity=8192 if big else 2048)
+
+
+def terrain_mesh(res: int, device: torch.device, y0: float = 0.56,
+                 amp: float = 0.02) -> torch.Tensor:
+    """``bench_implicit``'s contact obstacle: a ``res x res`` heightfield
+    ``y = y0 + amp sin(6.2832 x) cos(6.2832 z)`` over ``[0, 1]^2`` as
+    ``2 res^2`` triangles ``[2 res^2, 3, 3]`` (float32; each quad's
+    (a, b, c) triangles first, then its (a, c, d) ones)."""
+    xs = np.linspace(0.0, 1.0, res + 1)
+    X, Z = np.meshgrid(xs, xs, indexing="ij")
+    Y = y0 + amp * np.sin(6.2832 * X) * np.cos(6.2832 * Z)
+    V = np.stack([X, Y, Z], -1).astype(np.float32)
+    a = V[:-1, :-1].reshape(-1, 3)
+    b = V[1:, :-1].reshape(-1, 3)
+    c = V[1:, 1:].reshape(-1, 3)
+    d = V[:-1, 1:].reshape(-1, 3)
+    tri = np.concatenate([np.stack([a, b, c], 1), np.stack([a, c, d], 1)])
+    return torch.from_numpy(tri).to(device)
+
+
+def floor_mesh(y: float, lo: float, hi: float,
+               device: torch.device) -> torch.Tensor:
+    """Two triangles spanning the square ``[lo, hi]^2`` of the plane at
+    height ``y``, ``[2, 3, 3]`` float32."""
+    a, b, c, d = ([lo, y, lo], [hi, y, lo], [hi, y, hi], [lo, y, hi])
+    return torch.tensor([[a, b, c], [a, c, d]], dtype=torch.float32,
+                        device=device)
+
+
+def contact_block(n: int, tri: torch.Tensor, device: torch.device
+                  ) -> Tuple[MPMSim, MPMState, float, BinnedConfig2,
+                             MeshContact]:
+    """``bench_implicit``'s contact rows: :func:`implicit_block` and
+    :func:`implicit_config` over the mesh ``tri`` with the bench's
+    ``MeshContact.build(tri, dhat=0.01, kappa=10.0, max_tris=8)``.  Returns
+    ``(sim, state, dt, config, contact)``."""
+    sim, st, dt = implicit_block(n, device)
+    mc = MeshContact.build(tri.to(device), 0.01, 10.0, max_tris=8)
+    return sim, st, dt, implicit_config(n), mc
 
 
 def poisson_rhs(n: int, device: torch.device) -> torch.Tensor:

@@ -32,7 +32,8 @@ with ``Jp`` carries it as a 27th column, projected with the new F by
 ``sim.plasticity``.  The implicit step (``sim/implicit_binned2.py``) adds
 :func:`_ctx_p2g_affine`, a P2G of any number of plain-plus-affine
 channels, and reads :func:`_ctx_g2p` of any node field as its operator's
-gather.
+gather; its mesh contact adds :func:`_ctx_p2g_squared` (squared weights)
+and :func:`_advance`'s displacement scale (the CCD clamp).
 
 Not ported (TPU workarounds, see ROADMAP.md): ``chunk_bins`` (the chunked
 transfer is physics-identical to the unchunked one), ``sort_chunk``,
@@ -478,6 +479,20 @@ def _ctx_p2g_affine(ctx: _Ctx, Q0: Optional[torch.Tensor],
     return acc[:nb * 64].reshape(nb, 64, C)
 
 
+def _ctx_p2g_squared(ctx: _Ctx, Q0: torch.Tensor) -> torch.Tensor:
+    """P2G of plain channels ``Q0 [L, C]`` with the squared stencil
+    weights: ``node_i = sum_p w_ip^2 Q0_p``, ``[nb, 64, C]``.  The row norms
+    a Jacobi preconditioner of the contact stiffness reads (the implicit
+    step's ``contact_precond``)."""
+    nb = ctx.grid.table.capacity
+    C = Q0.shape[1]
+    payload = (ctx.w3 * ctx.w3)[..., None] * Q0[:, None, :]
+    acc = torch.zeros((nb * 64 + 1, C), dtype=torch.float32,
+                      device=Q0.device)
+    acc.index_add_(0, ctx.flat.reshape(-1), payload.reshape(-1, C))
+    return acc[:nb * 64].reshape(nb, 64, C)
+
+
 def _node_positions(ctx: _Ctx) -> torch.Tensor:
     """World position of every node of the table's blocks ``[nb, 64, 3]``."""
     table = ctx.grid.table
@@ -548,10 +563,15 @@ def _lanes(st: BinState, ctx: _Ctx):
 
 
 def _advance(sim: MPMSim, st: BinState, ctx: _Ctx, lanes, gm: torch.Tensor,
-             gv: torch.Tensor, max_vel: torch.Tensor, dt) -> BinState:
+             gv: torch.Tensor, max_vel: torch.Tensor, dt,
+             disp_scale: Optional[Callable[[torch.Tensor], torch.Tensor]]
+             = None) -> BinState:
     """G2P from the node velocities ``gv``, F update (projected by
     ``sim.plasticity`` with a Jp column), advection and recentering: the
-    end of a step, shared by the explicit and the implicit step."""
+    end of a step, shared by the explicit and the implicit step.
+    ``disp_scale`` maps the displacements ``dt v_new [L, 3]`` to a factor
+    ``[L]`` that scales them before the escape test (the implicit step's
+    CCD clamp); None advects by the whole displacement."""
     xb, vb, Fb, Cb, m, vol = lanes
     L = st.cols.shape[0]
     alive = ctx.alive
@@ -563,7 +583,11 @@ def _advance(sim: MPMSim, st: BinState, ctx: _Ctx, lanes, gm: torch.Tensor,
         Jp_new = Jpb
         if sim.plasticity is not None:
             F_new, Jp_new = sim.plasticity.project(F_new, Jpb)
-    x_new = xb + dt * v_new
+    if disp_scale is None:
+        x_new = xb + dt * v_new
+    else:
+        disp = dt * v_new
+        x_new = xb + disp_scale(disp)[:, None] * disp
     grid, escaped = _recenter(ctx, x_new)
 
     ok = alive[:, None]
