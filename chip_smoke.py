@@ -7,8 +7,11 @@ broad phase, the weakly compressible dam break, the implicit-MPM block
 (BASELINE config 5 without contact) and the same block over a mesh with
 IPC contact (config 5 as specified, over a two-triangle floor and over
 the bench's two heightfields); the four materials of
-examples/materials.py run at their own size, and the CG Poisson solve of
-BASELINE config 2 at its bench size.  Phases (each prints its
+examples/materials.py run at their own size, the CG Poisson solve of
+BASELINE config 2 at its bench size, the parallel primitives of BASELINE
+config 1 through the top-level API at 1M and 16M elements, and the
+containers, sparse grid, CSR and graph algorithms built on them at the
+sizes their users hold on a card.  Phases (each prints its
 results; a failed check raises and the script exits non-zero; nothing is
 caught):
 
@@ -104,11 +107,35 @@ caught):
    2e4, max_tris 4, use_ccd, dt 2e-3) for 20 steps, then one
    contact_precond step, on CUDA and on the CPU (CG iterations equal
    within 1; x, v, F within phase 14's tolerances plus the CPU's own
-   spread over summation order; no particle below floor - dhat).
+   spread over summation order; no particle below floor - dhat);
+19. BASELINE config 1 through ``zpc_tpu_torch.tpu_exec()`` at 1,048,576
+   and 16,777,216 elements (``default_rng(0)``): reduce (f32 add, int32
+   add, min, max), both scans (f32, int32), sort and radix_sort (full
+   width and bits [4, 20)), sort_pair packed and unpacked,
+   radix_sort_pair on a 30-bit window, merge_sort_pair, argsort_stable,
+   histogram at 256 and 65,536 bins, segment_reduce, select_if and
+   unique, and the uint32 forms at 1M; each held against the CPU port on
+   the same input (integers and permutations exact, the unpacked pair
+   sort's pairs as a multiset, f32 within 1e-5 of the sum of |terms|),
+   every scan replayed against the plain version; then reduce, exclusive
+   scan and radix sort at both sizes timed (best of 3 between CUDA
+   events, device time from torch.profiler) beside torch.sum,
+   torch.cumsum and torch.sort and the byte bound at 3.35 TB/s;
+20. the containers on the card against the CPU port: an OrderedMap of
+   2,097,152 slots (1,048,576 inserts with duplicates, 65,536 finds,
+   gets and erases), IndexBuckets of 1,048,576 points at dx = 1/128 with
+   65,536 neighbourhoods, a wide-key block table over 1,310,720 far
+   coordinates, a wide-key sparse grid's activation, sample and
+   sample_gradient at 262,144 points, csr_from_coo of the 64^3 7-point
+   Laplacian from triplets with duplicates with spmv and min-plus spmv
+   (timed best of 3), connected_components and greedy_color on its
+   adjacency, max_flow on 64 vertices, and one csr_from_coo at 70,000 x
+   70,000 (int64 keys) held to numpy; every scan replayed.
 
 The scan's launches in the kernel record are those of phases 4, 10, 12,
-13 and 16 (a line before gives them per path).  The last two lines are the
-kernel record and the contract line ``{"ok": true, "device": {...}}``.
+13, 16, 19 and 20 (a line before gives them per path).  The last two
+lines are the kernel record and the contract line
+``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
@@ -190,6 +217,11 @@ N_POISSON, POISSON_ITERS, N_POISSON_SMALL = 128, 100, 32
 FLOOR_Y = 0.57
 TERRAIN_RES = (32, 224)
 N_CSMALL, CSMALL_STEPS, CSMALL_FLOOR, CSMALL_DHAT = 512, 20, 0.2, 0.02
+# BASELINE config 1 (reduce / scan / sort on a 1M-element Vector) and the
+# second size of BENCHMARKS.md's primitive rows; the 7-point Laplacian's
+# grid side for phase 20's CSR
+CONFIG1_SIZES = (1_048_576, 16_777_216)
+LAPLACE_M = 64
 HBM_BYTES_PER_MS = 3.35e12 / 1e3     # H100 SXM HBM3 rate (data sheet)
 _WINDOW = "timed calls"               # the profiler window of device_split
 
@@ -225,16 +257,9 @@ _LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaMemset", "cuMemset",
              "cudaMemcpy", "cuMemcpy")
 
 
-def device_split(fn, reps=100):
-    """(device ms per call, device activities per call, their names) of
-    ``fn`` from torch.profiler.  The activities per call are the host's
-    launch, memset and copy calls inside a window of ``reps`` calls (the
-    host's clock, exact); the device time per call is the mean duration of
-    the device events times that count, so an event the profiler failed to
-    record (it drops a few) does not count as a missing launch."""
-    for _ in range(5):
-        fn()
-    torch.cuda.synchronize()
+def _profiled_window(fn, reps):
+    """torch.profiler's events of ``reps`` calls of ``fn`` in one marked
+    window, and that window's host time range."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function(_WINDOW):
@@ -246,16 +271,57 @@ def device_split(fn, reps=100):
            if e.name == _WINDOW and e.device_type == DeviceType.CPU]
     if len(win) != 1:
         raise RuntimeError(f"{len(win)} profiler windows, not 1")
-    launches = [e for e in events if e.device_type == DeviceType.CPU
-                and e.name.startswith(_LAUNCHES)
-                and win[0].start <= e.time_range.start <= win[0].end]
-    ev = [e for e in events
-          if e.device_type == DeviceType.CUDA and e.name != _WINDOW]
-    if not ev:
-        raise RuntimeError("the profiler saw no device time")
-    per_call = len(launches) / reps
-    mean_ms = sum(e.time_range.elapsed_us() for e in ev) / len(ev) / 1e3
-    return mean_ms * per_call, per_call, sorted({e.name for e in ev})
+    return events, win[0]
+
+
+def _queued_ms(fn, reps):
+    """Device ms per call between CUDA events, with the calls queued behind
+    a sleeping kernel (~25 ms) so that the host's launch time is hidden."""
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def device_split(fn, reps=100, tries=3):
+    """(device ms per call, device activities per call, their names) of
+    ``fn`` from torch.profiler.  The activities per call are the host's
+    launch, memset and copy calls inside a window of ``reps`` calls (the
+    host's clock, exact); the device time per call is the mean duration of
+    the device events times that count, so an event the profiler failed to
+    record (it drops a few) does not count as a missing launch.  Now and
+    then the profiler records no device event at all in a window: the
+    window is profiled again, and after ``tries`` such windows the device
+    time comes from CUDA events around calls queued behind a sleeping
+    kernel (:func:`_queued_ms`), which the line printed says."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        events, win = _profiled_window(fn, reps)
+        launches = [e for e in events if e.device_type == DeviceType.CPU
+                    and e.name.startswith(_LAUNCHES)
+                    and win.start <= e.time_range.start <= win.end]
+        per_call = len(launches) / reps
+        ev = [e for e in events
+              if e.device_type == DeviceType.CUDA and e.name != _WINDOW]
+        if ev:
+            mean_ms = sum(e.time_range.elapsed_us() for e in ev) / len(ev)
+            return mean_ms / 1e3 * per_call, per_call, \
+                sorted({e.name for e in ev})
+        time.sleep(0.5)
+    dev_ms = _queued_ms(fn, reps)
+    print(f"  (the profiler recorded no device event in {tries} windows of "
+          f"{reps} calls; {per_call:g} host launches a call; device time "
+          f"{dev_ms:.6f} ms a call from CUDA events around calls queued "
+          f"behind a sleeping kernel)", flush=True)
+    return dev_ms, per_call, ["not recorded by the profiler"]
 
 
 def split(label, fn, card, kernel=True):
@@ -473,7 +539,8 @@ def recorded_scans():
 
     def record(x, op="add", exclusive=False):
         out = inner(x, op, exclusive)
-        calls.append((x.clone(), op, exclusive, out.clone()))
+        if x.is_cuda:               # the CPU port's scans launch nothing
+            calls.append((x.clone(), op, exclusive, out.clone()))
         return out
     primitives.scan = record
     try:
@@ -482,13 +549,24 @@ def recorded_scans():
         primitives.scan = inner
 
 
-def replay_scans(calls):
+def replay_scans(calls, f32=False):
     """Each recorded scan against scan_reference on the same tensor: ints
-    exact (the main path scans int32 only)."""
+    exact (the MPM paths scan int32 only); with ``f32``, float32 add
+    within 1e-5 of the prefix sums of |x| and float max/min exact."""
     for x, op, excl, out in calls:
-        if x.dtype != torch.int32:
+        if f32 and x.dtype == torch.float32 and op == "add":
+            scale = torch.cumsum(x.double().abs(), 0)
+            if excl:
+                scale = torch.cat([scale.new_zeros(1), scale[:-1]])
+            _within_abs_sum(out, scan_op.scan_reference(x, op, excl).cpu(),
+                            scale.cpu(), f"scan add f32 n={x.numel()}")
+            continue
+        if x.dtype not in ((torch.int32, torch.uint32, torch.float32) if f32
+                           else (torch.int32,)):
             raise AssertionError(f"main-path scan of {x.dtype}")
         ref = scan_op.scan_reference(x, op, excl)
+        if x.dtype == torch.uint32:
+            out, ref = out.view(torch.int32), ref.view(torch.int32)
         if not torch.equal(out, ref):
             err = (out.long() - ref.long()).abs().max().item()
             raise AssertionError(f"main-path scan {op} exclusive={excl} "
@@ -1636,6 +1714,425 @@ def contact_card_vs_cpu(dev):
                   f"CPU's own spread over summation order {spread:.3g}")
 
 
+def _same(got, ref, what):
+    """Integer (or bool) results equal, element for element."""
+    got = got.cpu()
+    if got.dtype != ref.dtype or got.shape != ref.shape:
+        raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} on the "
+                             f"card, {ref.dtype}{tuple(ref.shape)} on the "
+                             f"CPU")
+    if got.dtype == torch.uint32:
+        got, ref = got.to(torch.int64), ref.to(torch.int64)
+    if not torch.equal(got, ref):
+        bad = torch.nonzero(got != ref)[:5].flatten().tolist()
+        raise AssertionError(f"{what}: card differs from the CPU port at "
+                             f"{bad}")
+
+
+def _within_abs_sum(got, ref, scale, what, rel=1e-5):
+    """|card - CPU| <= rel * scale element for element, scale the sum of
+    |terms| each element adds; returns the largest difference."""
+    err = (got.cpu().double() - ref.double()).abs()
+    if not bool((err <= rel * scale.double()).all()):
+        raise AssertionError(f"{what}: max abs diff {err.max().item():.3g} "
+                             f"over {rel} of the sum of |terms|")
+    return err.max().item()
+
+
+def _timed(label, fn, lib_label, lib, n, bytes_moved, card, keys=False):
+    """Best of 3 windows of back-to-back calls between CUDA events, device
+    time from torch.profiler, the same for one PyTorch call computing the
+    same function, and the byte bound at 3.35 TB/s; printed."""
+    reps = 50 if n > 2_000_000 else 200
+    ms = min(cuda_ms(fn, reps) for _ in range(3))
+    dev_ms, per_call, _ = device_split(fn)
+    lms = min(cuda_ms(lib, reps) for _ in range(3))
+    ldev, lper, _ = device_split(lib)
+    bound = bytes_moved / HBM_BYTES_PER_MS
+    rate = (f"{n / ms / 1e3:.1f} Mkeys/s" if keys
+            else f"{bytes_moved / ms / 1e6:.1f} GB/s")
+    print(f"  {label} n={n}: {ms:.6f} ms best of 3 ({rate}), device "
+          f"{dev_ms:.6f} ms ({per_call:g} device activities); bound "
+          f"{bound:.6f} ms ({bytes_moved} bytes at 3.35 TB/s); {lib_label}: "
+          f"{lms:.6f} ms, device {ldev:.6f} ms ({lper:g} activities) "
+          f"({card})", flush=True)
+    return {"ms": ms, "device_ms": dev_ms, "bound_ms": bound,
+            "library_ms": lms, "library_device_ms": ldev}
+
+
+def _config1_size(n, pol, cpu, rng, dev):
+    """Every primitive of config 1 at ``n`` on the card, each result held
+    against the CPU port's on the same input."""
+    f = rng.standard_normal(n).astype(np.float32)
+    a = rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64).astype(np.int32)
+    k = rng.integers(0, 4096, n).astype(np.int32)
+    h = rng.integers(0, 65_536, n).astype(np.int32)
+    inputs = {name: torch.from_numpy(x) for name, x in
+              (("f", f), ("a", a), ("k", k), ("h", h))}
+    inputs["v"] = torch.arange(n, dtype=torch.int32)
+    inputs["k128"] = inputs["k"] % 128
+    inputs["h256"] = inputs["h"] % 256
+    inputs["sk"] = torch.sort(inputs["k"]).values
+    inputs["pos"] = inputs["a"] > 0
+    g = {name: x.to(dev) for name, x in inputs.items()}
+    absf = inputs["f"].abs()
+    # reductions: integers exact, f32 within 1e-5 of sum |x|
+    for op in ("add", "min", "max"):
+        _same(zpc_tpu_torch.reduce(pol, g["a"], op),
+              zpc_tpu_torch.reduce(cpu, inputs["a"], op), f"reduce {op} "
+                                                          f"int32 n={n}")
+    err = _within_abs_sum(zpc_tpu_torch.reduce(pol, g["f"]),
+                          zpc_tpu_torch.reduce(cpu, inputs["f"]),
+                          absf.double().sum(), f"reduce add f32 n={n}")
+    # scans: integers exact; f32 prefix i within 1e-5 of sum_{j<=i} |x_j|
+    prefix = torch.cumsum(absf.double(), 0)
+    for fn in (zpc_tpu_torch.inclusive_scan, zpc_tpu_torch.exclusive_scan):
+        _same(fn(pol, g["a"]), fn(cpu, inputs["a"]),
+              f"{fn.__name__} int32 n={n}")
+    err = max(err, _within_abs_sum(
+        zpc_tpu_torch.inclusive_scan(pol, g["f"]),
+        zpc_tpu_torch.inclusive_scan(cpu, inputs["f"]), prefix,
+        f"inclusive_scan f32 n={n}"))
+    err = max(err, _within_abs_sum(
+        zpc_tpu_torch.exclusive_scan(pol, g["f"]),
+        zpc_tpu_torch.exclusive_scan(cpu, inputs["f"]),
+        torch.cat([prefix.new_zeros(1), prefix[:-1]]),
+        f"exclusive_scan f32 n={n}"))
+    # sorts: keys and permutations exact
+    calls = [
+        ("sort", zpc_tpu_torch.sort, ("a",), {}),
+        ("radix_sort", zpc_tpu_torch.radix_sort, ("a",), {}),
+        ("radix_sort [4, 20)", zpc_tpu_torch.radix_sort, ("a",),
+         dict(sbit=4, ebit=20)),
+        ("sort_pair packed", zpc_tpu_torch.sort_pair, ("k128", "v"),
+         dict(key_bound=128, val_bound=n)),
+        ("radix_sort_pair wide window", zpc_tpu_torch.radix_sort_pair,
+         ("a", "v"), dict(sbit=0, ebit=30)),
+        ("merge_sort_pair", zpc_tpu_torch.merge_sort_pair, ("k", "v"), {}),
+        ("argsort_stable", primitives.argsort_stable, ("k",), {}),
+        ("histogram 256", zpc_tpu_torch.histogram, ("h256", 256), {}),
+        ("histogram 65,536", zpc_tpu_torch.histogram, ("h", 65_536), {}),
+        ("segment_reduce max", zpc_tpu_torch.segment_reduce,
+         ("a", "k", 4096), dict(op="max")),
+        ("select_if", zpc_tpu_torch.select_if, ("a", "pos"), {}),
+        ("unique", zpc_tpu_torch.unique, ("sk",), {})]
+    for name, fn, args, kw in calls:
+        got = fn(pol, *(g[x] if isinstance(x, str) else x for x in args),
+                 **kw)
+        ref = fn(cpu, *(inputs[x] if isinstance(x, str) else x
+                        for x in args), **kw)
+        for i, (gt, rf) in enumerate(zip(
+                got if isinstance(got, tuple) else (got,),
+                ref if isinstance(ref, tuple) else (ref,))):
+            _same(gt, rf, f"{name} n={n} output {i}")
+    # the unpacked pair sort orders ties as it likes: keys exact, the
+    # (key, value) pairs equal as a multiset
+    ko, vo = zpc_tpu_torch.sort_pair(pol, g["k"], g["v"])
+    rk, rv = zpc_tpu_torch.sort_pair(cpu, inputs["k"], inputs["v"])
+    _same(ko, rk, f"sort_pair keys n={n}")
+    pairs = (ko.long() << 32) | vo.long()
+    _same(torch.sort(pairs).values, torch.sort((rk.long() << 32) |
+                                               rv.long()).values,
+          f"sort_pair (key, value) multiset n={n}")
+    # segment sums of f32 within 1e-5 of each segment's sum |x|
+    seg = torch.zeros(4096, dtype=torch.float64).index_add_(
+        0, inputs["k"].long(), absf.double())
+    err = max(err, _within_abs_sum(
+        zpc_tpu_torch.segment_reduce(pol, g["f"], g["k"], 4096),
+        zpc_tpu_torch.segment_reduce(cpu, inputs["f"], inputs["k"], 4096),
+        seg, f"segment_reduce add f32 n={n}"))
+    names = [c[0] for c in calls]
+    return g, err, names
+
+
+def _uint32_ops(pol, cpu, rng, dev, n=1_048_576):
+    """The uint32 forms (computed in int64 where PyTorch lacks uint32
+    arithmetic) on this machine's torch, against the CPU port."""
+    u = torch.from_numpy(rng.integers(0, 2 ** 32, n, dtype=np.uint64)
+                         .astype(np.uint32))
+    gu = u.to(dev)
+    for name, fn, kw in (
+            ("reduce add", zpc_tpu_torch.reduce, {}),
+            ("reduce max", zpc_tpu_torch.reduce, dict(op="max")),
+            ("inclusive_scan add", zpc_tpu_torch.inclusive_scan, {}),
+            ("inclusive_scan max", zpc_tpu_torch.inclusive_scan,
+             dict(op="max")),
+            ("exclusive_scan", zpc_tpu_torch.exclusive_scan, {}),
+            ("sort", zpc_tpu_torch.sort, {}),
+            ("radix_sort [4, 20)", zpc_tpu_torch.radix_sort,
+             dict(sbit=4, ebit=20)),
+            ("argsort_stable", primitives.argsort_stable, {})):
+        _same(fn(pol, gu, **kw), fn(cpu, u, **kw), f"uint32 {name} n={n}")
+    su = zpc_tpu_torch.sort(cpu, u)
+    for gt, rf in zip(zpc_tpu_torch.unique(pol, su.to(dev)),
+                      zpc_tpu_torch.unique(cpu, su)):
+        _same(gt, rf, f"uint32 unique n={n}")
+
+
+def config1(dev, card):
+    phase("19 BASELINE config 1: the primitives through tpu_exec()")
+    pol = zpc_tpu_torch.tpu_exec()
+    check(pol.device == dev and not pol.is_sequential,
+          f"tpu_exec() is the card's policy ({pol.device})")
+    cpu = zpc_tpu_torch.seq_exec()
+    rng = np.random.default_rng(0)
+    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    inputs, max_err = {}, 0.0
+    with recorded_scans() as calls:
+        for n in CONFIG1_SIZES:
+            inputs[n], err, names = _config1_size(n, pol, cpu, rng, dev)
+            max_err = max(max_err, err)
+        _uint32_ops(pol, cpu, rng, dev)
+        torch.cuda.synchronize()
+    launches = scan_op.LAUNCHES
+    check(nse_op.LAUNCHES == 0, "config 1 launched no NSE kernel")
+    check(True, f"at n = {', '.join(map(str, CONFIG1_SIZES))}: reduce "
+                f"(add, min, max), both scans (int32, f32), "
+                f"{', '.join(names)}, the unpacked sort_pair and the f32 "
+                f"segment sum on the card = the CPU port's (integers and "
+                f"permutations exact; f32 within 1e-5 of the sum of |terms|, "
+                f"max abs diff {max_err:.3g}); the uint32 forms at 1,048,576 "
+                f"exact")
+    check(len(calls) == launches and launches > 0,
+          f"{launches} scan launches, all recorded")
+    sizes = replay_scans(calls, f32=True)
+    check(True, f"every config-1 scan = plain on the same input (ints "
+                f"exact, f32 add within 1e-5 of the prefix sums of |x|); "
+                f"(n, op): {sizes}")
+    times = {}
+    for n in CONFIG1_SIZES:
+        g = inputs[n]
+        f, a = g["f"], g["a"]
+        times[("reduce", n)] = _timed(
+            "reduce add f32", lambda: zpc_tpu_torch.reduce(pol, f),
+            "torch.sum", lambda: torch.sum(f), n, 4 * n + 4, card)
+        times[("exclusive_scan", n)] = _timed(
+            "exclusive_scan add f32",
+            lambda: zpc_tpu_torch.exclusive_scan(pol, f), "torch.cumsum",
+            lambda: torch.cumsum(f, 0), n, 8 * n, card)
+        times[("radix_sort", n)] = _timed(
+            "radix_sort int32", lambda: zpc_tpu_torch.radix_sort(pol, a),
+            "torch.sort", lambda: torch.sort(a), n, 8 * n, card, keys=True)
+    return launches, times
+
+
+def _laplace_coo(m):
+    """The 7-point Laplacian of an m^3 grid as COO triplets with
+    duplicates: each diagonal entry 6 as two triplets of 3, each
+    off-diagonal -1 once per direction."""
+    idx = np.arange(m ** 3).reshape(m, m, m)
+    rows, cols, vals = [idx.ravel()] * 2, [idx.ravel()] * 2, \
+        [np.full(m ** 3, 3.0)] * 2
+    for axis in range(3):
+        for lo, hi in ((slice(None, -1), slice(1, None)),
+                       (slice(1, None), slice(None, -1))):
+            sl_a = [slice(None)] * 3
+            sl_b = [slice(None)] * 3
+            sl_a[axis], sl_b[axis] = lo, hi
+            rows.append(idx[tuple(sl_a)].ravel())
+            cols.append(idx[tuple(sl_b)].ravel())
+            vals.append(np.full(rows[-1].shape, -1.0))
+    return (torch.from_numpy(np.concatenate(rows).astype(np.int32)),
+            torch.from_numpy(np.concatenate(cols).astype(np.int32)),
+            torch.from_numpy(np.concatenate(vals).astype(np.float32)))
+
+
+def _same_fields(got, ref, what, names):
+    for name in names:
+        _same(getattr(got, name), getattr(ref, name), f"{what} {name}")
+
+
+def containers_path(dev, card):
+    phase("20 containers, sparse grid, CSR and graphs on the card")
+    from zpc_tpu_torch.containers import block_table as bt
+    from zpc_tpu_torch.containers import index_buckets as ibk
+    from zpc_tpu_torch.containers import ordered_map as om
+    from zpc_tpu_torch.geometry import sparse_grid as sg
+    from zpc_tpu_torch.math import sparse as sp
+    from zpc_tpu_torch.utils import graph as gr
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(1)
+    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    with recorded_scans() as calls:
+        # OrderedMap: 1,048,576 keys with duplicates into 2,097,152 slots
+        keys = torch.from_numpy(rng.integers(0, 1 << 21, 1 << 20)
+                                .astype(np.int32))
+        vals = torch.from_numpy(rng.standard_normal(1 << 20)
+                                .astype(np.float32))
+        q = torch.from_numpy(rng.integers(0, 1 << 21, 65_536)
+                             .astype(np.int32))
+        maps = [om.ordered_map(1 << 21, device=d).insert(keys.to(d),
+                                                         vals.to(d))
+                for d in (dev, cpu)]
+        _same_fields(maps[0], maps[1], "OrderedMap.insert",
+                     ("keys", "values", "count"))
+        _same(maps[0].find(q.to(dev)), maps[1].find(q), "OrderedMap.find")
+        _same(maps[0].get(q.to(dev), -1.0), maps[1].get(q, -1.0),
+              "OrderedMap.get")
+        erased = [m.erase(q.to(d)) for m, d in zip(maps, (dev, cpu))]
+        _same_fields(erased[0], erased[1], "OrderedMap.erase",
+                     ("keys", "values", "count"))
+        check(True, f"OrderedMap (capacity 2,097,152): insert of 1,048,576 "
+                    f"keys ({int(maps[1].count)} distinct), find, get and "
+                    f"erase of 65,536 ({int(erased[1].count)} left) = the "
+                    f"CPU port's")
+        # IndexBuckets over 1,048,576 points at dx = 1/128
+        x = torch.from_numpy(rng.random((1 << 20, 3), dtype=np.float32))
+        xq = torch.from_numpy(rng.random((65_536, 3), dtype=np.float32))
+        ibs = [ibk.build_index_buckets(x.to(d), 1 / 128, 1 << 20)
+               for d in (dev, cpu)]
+        _same_fields(ibs[0], ibs[1], "IndexBuckets", ("offsets", "indices",
+                                                      "count"))
+        _same(ibs[0].table.keys, ibs[1].table.keys, "IndexBuckets table")
+        cand = [ibk.neighbor_candidates(ib, xq.to(d), 4)
+                for ib, d in zip(ibs, (dev, cpu))]
+        for gt, rf in zip(*cand):
+            _same(gt, rf, "neighbor_candidates")
+        check(True, f"IndexBuckets of 1,048,576 points at dx = 1/128 "
+                    f"({int(ibs[1].table.count)} cells) and 65,536 "
+                    f"neighbourhoods of 27 cells x 4 = the CPU port's")
+        # a wide-key block table over 1,048,576 far coordinates
+        far = torch.from_numpy(np.stack(
+            [rng.integers(-(1 << 28), 1 << 28, 1 << 20),
+             rng.integers(-16_000, 16_000, 1 << 20),
+             rng.integers(-32_000, 32_000, 1 << 20)], -1).astype(np.int32))
+        far = torch.cat([far, far[: 1 << 18]])             # duplicates
+        wts = [bt.build_wide_block_table(far.to(d), 1 << 20)
+               for d in (dev, cpu)]
+        _same_fields(wts[0][0], wts[1][0], "WideBlockTable",
+                     ("kx", "kyz", "count"))
+        _same(wts[0][1], wts[1][1], "WideBlockTable inverse")
+        _same(wts[0][0].query(far[:65_536].to(dev)),
+              wts[1][0].query(far[:65_536]), "WideBlockTable.query")
+        check(True, f"build_wide_block_table over {far.shape[0]} far "
+                    f"coordinates ({int(wts[1][0].count)} blocks) and "
+                    f"65,536 queries = the CPU port's")
+        # a wide-key sparse grid: 262,144 points in cells 5,120-5,183 of
+        # each axis (blocks past the packed key's +-512)
+        pts = torch.from_numpy(80.0 + rng.random((1 << 18, 3),
+                                                 dtype=np.float32))
+        grids, samples = [], []
+        for d in (dev, cpu):
+            g = sg.sparse_grid([zpc_tpu_torch.prop("rho")], dx=1 / 64,
+                               block_capacity=8192, device=d,
+                               wide_keys=True)
+            cells = torch.floor(g.world_to_index(pts.to(d))).to(torch.int32)
+            g, slots = g.activate_with_slots(
+                torch.div(cells, 4, rounding_mode="floor"), dilation=1)
+            grids.append((g, slots))
+        _same_fields(grids[0][0].table, grids[1][0].table, "sparse grid "
+                     "table", ("kx", "kyz", "count"))
+        _same(grids[0][1], grids[1][1], "activate_with_slots slots")
+        nw = grids[1][0].node_world_positions()
+        rho = (torch.sin(3 * nw[..., 0]) + nw[..., 1] * nw[..., 2]) * \
+            grids[1][0].table.mask[:, None]
+        for (g, _), d in zip(grids, (dev, cpu)):
+            g = g.with_data(rho=rho.to(d))
+            samples.append((g.sample("rho", pts.to(d)),
+                            g.sample_gradient("rho", pts.to(d))))
+        (s_g, d_g), (s_c, d_c) = samples
+        e_s = (s_g.cpu() - s_c).abs().max().item()
+        e_d = (d_g.cpu() - d_c).abs().max().item()
+        check(e_s <= 1e-6 * s_c.abs().max().item() and
+              e_d <= 1e-6 * d_c.abs().max().item(),
+              f"sparse_grid(wide_keys=True): {int(grids[1][0].table.count)} "
+              f"blocks; sample and sample_gradient at 262,144 points = the "
+              f"CPU port's within 1e-6 of their largest (max abs diff "
+              f"{e_s:.3g}, {e_d:.3g})")
+        # CSR: the 7-point Laplacian at 64^3 from triplets with duplicates
+        r, c, v = _laplace_coo(LAPLACE_M)
+        nr = LAPLACE_M ** 3
+        mats = [sp.csr_from_coo(r.to(d), c.to(d), v.to(d), nr, nr)
+                for d in (dev, cpu)]
+        _same_fields(mats[0], mats[1], "csr_from_coo",
+                     ("indptr", "cols", "vals", "nnz"))
+        xv = torch.from_numpy(rng.standard_normal(nr).astype(np.float32))
+        y = [sp.spmv(A, xv.to(A.cols.device)) for A in mats]
+        scale = sp.spmv(sp.CSRMatrix(mats[1].indptr, mats[1].cols,
+                                     mats[1].vals.abs(), mats[1].nnz, nr,
+                                     nr), xv.abs())
+        e_y = _within_abs_sum(y[0], y[1], scale, "spmv", rel=1e-6)
+        mp = [sp.spmv_semiring(A, xv.to(A.cols.device), "min_plus")
+              for A in mats]
+        _same(mp[0], mp[1], "spmv_semiring min_plus")
+        check(True, f"csr_from_coo of {r.shape[0]} triplets -> "
+                    f"{int(mats[1].nnz)} nonzeros at {nr} rows; spmv within "
+                    f"1e-6 of sum |A||x| (max abs diff {e_y:.3g}) and "
+                    f"min-plus spmv exact = the CPU port's")
+        # the wide key: 70,000 x 70,000, held to numpy
+        n7 = 70_000
+        wr = rng.integers(0, n7, 200_000).astype(np.int32)
+        wc = rng.integers(0, n7, 200_000).astype(np.int32)
+        wr[:2], wc[:2] = (0, 61_356), (5, 47_301)   # keys 5, 2^32 + 5
+        wv = rng.standard_normal(200_000).astype(np.float32)
+        W = sp.csr_from_coo(torch.from_numpy(wr).to(dev),
+                            torch.from_numpy(wc).to(dev),
+                            torch.from_numpy(wv).to(dev), n7, n7)
+        key = wr.astype(np.int64) * n7 + wc
+        uk, inv = np.unique(key, return_inverse=True)
+        nnz = int(W.nnz)
+        ok = (nnz == len(uk) and np.array_equal(
+            W.cols[:nnz].cpu().numpy(), uk % n7) and np.array_equal(
+            W.row_ids[:nnz].cpu().numpy(), uk // n7) and np.array_equal(
+            W.indptr.cpu().numpy(), np.searchsorted(uk // n7,
+                                                    np.arange(n7 + 1))))
+        wsum = np.bincount(inv, wv.astype(np.float64))
+        wabs = np.bincount(inv, np.abs(wv).astype(np.float64))
+        ok &= bool((np.abs(W.vals[:nnz].cpu().numpy() - wsum) <=
+                    1e-6 * wabs).all())
+        check(ok, f"csr_from_coo at {n7} x {n7} (int64 keys): {nnz} "
+                  f"nonzeros, rows, columns and sums = numpy's (the "
+                  f"colliding pair kept apart)")
+        # graphs on the Laplacian's adjacency (its off-diagonal triplets: a
+        # self-loop never wins a colouring round) and a 64-vertex network
+        adj = [sp.csr_from_coo(r.to(d), c.to(d), v.to(d), nr, nr,
+                               valid=(r != c).to(d)) for d in (dev, cpu)]
+        labels = [gr.connected_components(A) for A in adj]
+        _same(labels[0], labels[1], "connected_components")
+        colors = [gr.greedy_color(A, torch.Generator().manual_seed(0))
+                  for A in adj]
+        _same(colors[0], colors[1], "greedy_color")
+        cc = colors[0]
+        rid = adj[0].row_ids
+        live = adj[0].cols >= 0
+        proper = bool((cc >= 0).all()) and not bool(
+            (cc[rid[live].long()] == cc[adj[0].cols[live].long()]).any())
+        check(proper, f"connected_components ({labels[1].unique().numel()} "
+                      f"labels after its fixed rounds) and greedy_color "
+                      f"({int(cc.max()) + 1} colours, proper) = the CPU "
+                      f"port's")
+        fr = rng.integers(0, 64, 400)
+        fc = rng.integers(0, 64, 400)
+        keep = fr != fc
+        flow_in = [torch.from_numpy(a[keep].astype(t)) for a, t in (
+            (fr, np.int32), (fc, np.int32),
+            (rng.uniform(0.5, 4.0, 400), np.float32))]
+        flows = [float(gr.max_flow(sp.csr_from_coo(
+            *(a.to(d) for a in flow_in), 64, 64), 0, 63))
+            for d in (dev, cpu)]
+        check(abs(flows[0] - flows[1]) <= 1e-6 * abs(flows[1]),
+              f"max_flow on 64 vertices: {flows[0]:.6f} = the CPU port's "
+              f"{flows[1]:.6f} within 1e-6")
+        torch.cuda.synchronize()
+    launches = scan_op.LAUNCHES
+    check(nse_op.LAUNCHES == 0, "phase 20 launched no NSE kernel")
+    check(len(calls) == launches and launches > 0,
+          f"{launches} scan launches, all recorded")
+    sizes = replay_scans(calls)
+    check(True, f"every phase-20 scan = plain on the same input, ints "
+                f"exact; (n, op): {sizes}")
+    A = mats[0]
+    x = xv.to(dev)
+    for label, fn in (("spmv", lambda: sp.spmv(A, x)),
+                      ("spmv_semiring min_plus",
+                       lambda: sp.spmv_semiring(A, x, "min_plus"))):
+        ms = min(cuda_ms(fn, 50) for _ in range(3))
+        nz = int(A.nnz)
+        print(f"  {label} at {nr} rows, {nz} nonzeros: {ms:.6f} ms best of "
+              f"3 ({nz / ms / 1e6:.3f} Gnnz/s; {card})", flush=True)
+    return launches
+
+
 def main():
     card = environment()
     dev = zpc_tpu_torch.cuda_device(0)
@@ -1657,11 +2154,15 @@ def main():
     contact_launches = contact_path(dev, card, imp_ms)
     config5_rows(dev, card)
     contact_card_vs_cpu(dev)
+    config1_launches, _ = config1(dev, card)
+    container_launches = containers_path(dev, card)
     per_path = {"elastic block (phase 4)": launches,
                 "dam break (phase 10)": fluid_launches,
                 "materials (phase 12)": mat_launches,
                 "implicit block (phase 13)": imp_launches,
-                "mesh contact (phase 16)": contact_launches}
+                "mesh contact (phase 16)": contact_launches,
+                "config 1 (phase 19)": config1_launches,
+                "containers, CSR, graphs (phase 20)": container_launches}
     print(f"  scan launches per path: {per_path}; total "
           f"{sum(per_path.values())}", flush=True)
     launches = sum(per_path.values())

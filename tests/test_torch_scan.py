@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from zpc_tpu_torch import _kernels
+from zpc_tpu_torch.core.executor import seq_exec
 from zpc_tpu_torch.ops import scan as tscan
 from zpc_tpu_torch.parallel import primitives as tprim
 
@@ -128,19 +129,20 @@ def test_primitives_match_zpc_tpu(dtype, op):
     pol = jit_exec()
     inc = np.asarray(jprim.inclusive_scan(pol, jnp.asarray(x), op=op))
     exc = np.asarray(jprim.exclusive_scan(pol, jnp.asarray(x), op=op))
-    _check(tprim.inclusive_scan(_to_torch(x), op).numpy(), inc, dtype)
-    _check(tprim.exclusive_scan(_to_torch(x), op).numpy(), exc, dtype)
+    cpu = seq_exec()
+    _check(tprim.inclusive_scan(cpu, _to_torch(x), op).numpy(), inc, dtype)
+    _check(tprim.exclusive_scan(cpu, _to_torch(x), op).numpy(), exc, dtype)
     # a non-zero init lands at position 0 only, as in the JAX package
     exc7 = np.asarray(jprim.exclusive_scan(pol, jnp.asarray(x), op=op,
                                            init=7))
-    _check(tprim.exclusive_scan(_to_torch(x), op, init=7).numpy(), exc7,
-           dtype)
+    _check(tprim.exclusive_scan(cpu, _to_torch(x), op, init=7).numpy(),
+           exc7, dtype)
 
 
 def test_primitives_empty():
     e = torch.zeros(0, dtype=torch.int32)
-    assert tprim.inclusive_scan(e).numel() == 0
-    assert tprim.exclusive_scan(e, "max").numel() == 0
+    assert tprim.inclusive_scan(seq_exec(), e).numel() == 0
+    assert tprim.exclusive_scan(seq_exec(), e, "max").numel() == 0
 
 
 @pytest.mark.parametrize("op,lead", [("max", -np.inf), ("min", np.inf)])

@@ -1,2 +1,3 @@
-"""Containers: structured fields, block tables and the LBVH
+"""Containers: fields, dense fields, structured fields, block tables (packed
+and wide keys), ordered maps, ring buffers, index buckets and the LBVH
 (counterpart of ``zpc_tpu/containers``)."""

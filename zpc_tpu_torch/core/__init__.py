@@ -1,1 +1,2 @@
-"""Property vocabulary (counterpart of ``zpc_tpu/core``)."""
+"""Property vocabulary and execution policies (counterpart of
+``zpc_tpu/core``)."""

@@ -1,13 +1,34 @@
 """Property vocabulary (counterpart of ``zpc_tpu/core/config.py``):
-:class:`PropertyTag` and :func:`prop`, which declare the named multi-channel
-properties of a structured field."""
+:class:`MemSrc` and :class:`Layout` (the reference's ``memsrc_e`` and
+``layout_e``, kept for API parity: memory is a ``torch.device`` here, and
+every container is stored SoA), :class:`PropertyTag` and :func:`prop`, which
+declare the named multi-channel properties of a structured field."""
 
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import Tuple, Union
 
-__all__ = ["PropertyTag", "prop"]
+__all__ = ["MemSrc", "Layout", "PropertyTag", "prop"]
+
+
+class MemSrc(enum.Enum):
+    """Memory source (reference ``memsrc_e``): host is the CPU, device a
+    CUDA device; unified memory aliases device."""
+
+    host = "host"
+    device = "device"
+    um = "um"
+
+
+class Layout(enum.Enum):
+    """Storage layout (reference ``layout_e``); every container of the
+    port is SoA."""
+
+    aos = "aos"
+    soa = "soa"
+    aosoa = "aosoa"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,6 +46,13 @@ class PropertyTag:
         if self.num_channels == 1:
             return ()
         return (int(self.num_channels),)
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for d in self.shape:
+            n *= d
+        return n
 
 
 def prop(name: str,

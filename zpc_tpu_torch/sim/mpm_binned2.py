@@ -51,6 +51,7 @@ import torch
 
 from ..containers.block_table import (KEY_SENTINEL, build_block_table,
                                       pack_coords, unpack_key)
+from ..core.executor import Executor
 from ..geometry.collider import resolve_boundaries
 from ..geometry.sparse_grid import SparseGrid, neighbor_offsets
 from ..math.interpolation import bspline_weights
@@ -65,6 +66,7 @@ __all__ = ["K", "BinnedConfig2", "BinState", "bin_state", "unbin_state",
 K = 128                      # lanes per bin
 SLACK = 1                    # drift slack in cells
 SIDE = 6 + 2 * SLACK         # window side in nodes
+_POL = Executor()            # the scans run on their tensors' device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +169,7 @@ def _groups(skey: torch.Tensor, nbq: int):
     neq = torch.ones_like(live)
     neq[1:] = skey[1:] != skey[:-1]
     neq &= live
-    rank = inclusive_scan(neq.to(torch.int32)) - 1           # group id
+    rank = inclusive_scan(_POL, neq.to(torch.int32)) - 1     # group id
     n_groups = torch.clamp_min(rank[-1] + 1, 0)
     lane = torch.arange(n, dtype=torch.int32, device=dev)
     dst = torch.where(neq, rank, nbq).clamp(0, nbq).long()
@@ -245,7 +247,7 @@ def _sort_into_bins(keys: torch.Tensor, cols: torch.Tensor, pid: torch.Tensor,
     gkeys, gvalid, counts, n_groups = _groups(skey, nbq)
     pads = torch.where(gvalid, (-counts) % K, 0)
     total = (counts + pads).sum()
-    padcum = inclusive_scan(pads.to(torch.int32))
+    padcum = inclusive_scan(_POL, pads.to(torch.int32))
     # overflow also fires when the dummies needed exceed the npad budget:
     # truncated padding would silently mix two blocks in one bin
     overflow = (total > L) | (n_groups > nbq) | (padcum[-1] > npad)
@@ -288,7 +290,7 @@ def _dummy_keys_by_rank(gkeys, gvalid, pads, padcum, size: int):
     gmark = torch.zeros((size + 1,), dtype=torch.int32, device=gkeys.device)
     gmark.scatter_reduce_(0, pos.long(), torch.where(gvalid, gkeys, 0),
                           reduce="amax")
-    return inclusive_scan(gmark[:size], "max")
+    return inclusive_scan(_POL, gmark[:size], "max")
 
 
 def _rebin(sim: MPMSim, st: BinState, cfg: BinnedConfig2) -> BinState:
@@ -318,8 +320,8 @@ def _sort_into_bins_from_lanes(keys, cols, pid, cfg: BinnedConfig2,
     # the j-th dead lane (in lane order) pads the group whose cumulative
     # pad range covers j
     dead = keys == KEY_SENTINEL
-    dead_rank = inclusive_scan(dead.to(torch.int32)) - 1
-    padcum = inclusive_scan(pads.to(torch.int32))
+    dead_rank = inclusive_scan(_POL, dead.to(torch.int32)) - 1
+    padcum = inclusive_scan(_POL, pads.to(torch.int32))
     dense = _dummy_keys_by_rank(gkeys, gvalid, pads, padcum, L)
     in_budget = dead & (dead_rank < padcum[-1])
     keys2 = torch.where(in_budget, dense[dead_rank.clamp(0, L - 1).long()],
