@@ -2,11 +2,13 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Five paths run at full width: the explicit-MPM elastic block, the LBVH
+Seven paths run at full width: the explicit-MPM elastic block, the LBVH
 broad phase, the weakly compressible dam break, the implicit-MPM block
-(BASELINE config 5 without contact) and the same block over a mesh with
-IPC contact (config 5 as specified, over a two-triangle floor and over
-the bench's two heightfields); the four materials of
+(BASELINE config 5 without contact), the same block over a mesh with IPC
+contact (config 5 as specified, over a two-triangle floor and over the
+bench's two heightfields), the README's Quick start through ``Scene`` and
+``simulate`` with bgeo frames and checkpoints, and examples/mpm2d.py's
+discs in 2-D at a user's scale; the four materials of
 examples/materials.py run at their own size, the CG Poisson solve of
 BASELINE config 2 at its bench size, the parallel primitives of BASELINE
 config 1 through the top-level API at 1M and 16M elements, and the
@@ -130,11 +132,50 @@ caught):
    Laplacian from triplets with duplicates with spmv and min-plus spmv
    (timed best of 3), connected_components and greedy_color on its
    adjacency, max_flow on 64 vertices, and one csr_from_coo at 70,000 x
-   70,000 (int64 keys) held to numpy; every scan replayed.
+   70,000 (int64 keys) held to numpy; every scan replayed;
+21. the README's Quick start at full width: ``Scene(dx=1/128)
+   .add_cube([0.5, 0.6, 0.5], 0.25, E=5e4)`` over a sticky ground at
+   y = 0.05 (262,144 particles, dt from ``suggest_dt``), the README's loop
+   of 100 unbinned ``explicit_step``s (ms/step), then ``simulate`` for
+   1,000 binned2 steps with a bgeo frame every 100 and a checkpoint every
+   500; gated: 10 frames read back equal to the state ``on_frame`` saw,
+   the checkpoint reloaded bit for bit, finite channels, particle mass
+   unchanged, no particle below y = 0.05 - dx, at least one rebin after
+   the impact near step 770 (counted from the scan launches beyond each
+   segment's 4 in ``bin_state``), every scan replayed; then ms/step and
+   particle-steps/s of the same ``simulate`` with and without the IO;
+22. the same scene at dx = 1/32 with an ``add_sphere`` ball (5,187
+   particles), 240 steps through ``simulate`` on CUDA and on the CPU (x, v,
+   F within 1e-5, 2e-4, 1e-5 plus the CPU's own spread over summation
+   order);
+23. examples/mpm2d.py at its defaults (8,192 draws, dx = 1/128, dt =
+   1e-4, a slip ground at y = 0.1 with friction 0.2, the example's bins):
+   200 unbinned steps and one 3,000-step binned rollout (past the impact
+   near step 2,860, so the 2-D rebin runs), card against CPU as phase 22;
+24. the same discs at a user's scale: 327,680 draws (257,635 particles)
+   at dx = 1/1024, dt 5e-5, ``block_capacity`` 8,192 and the example's
+   bins, one 7,000-step chain (impact near step 5,700), ms/step and
+   particle-steps/s; gated: rebins, no overflow, mass, finite columns, no
+   particle below y = 0.1 - dx - 1e-3, every scan replayed;
+25. the rest of the family at its JAX tests' sizes, card against CPU: the
+   2-D fluid unbinned and binned, the 2-D implicit step on a strained F,
+   the cubic-B-spline step, and phase 5's block falling onto a tilted,
+   spinning slab (a ``TransformedLevelSet`` collider, slip);
+26. the incremental rebin: phase 21's scene through ``adaptive_chain(
+   explicit_step_binned2, rebin_adaptive)`` for 1,000 steps with
+   ``migrate_capacity`` 8,192 and one reserve bin per block (as
+   benchmarks/probe_fluid_cost.py sets them, at 4,096 bins: its 3,072
+   cannot hold the scene's reserve bins), then with ``migrate_capacity``
+   n / 2, then with full rebins only; migrations, full rebins and the
+   particles each rebin had to move printed; the first two migrations
+   equal to the CPU port's (pid, bin_block, columns exact), the chain
+   with migrations within the tolerances (plus twice the spread between
+   the other two) of the one with full rebins, ms per migration beside
+   ms per full rebin.
 
 The scan's launches in the kernel record are those of phases 4, 10, 12,
-13, 16, 19 and 20 (a line before gives them per path).  The last two
-lines are the kernel record and the contract line
+13, 16, 19, 20, 21, 24 and 26 (a line before gives them per path).  The
+last two lines are the kernel record and the contract line
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -142,10 +183,12 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import json
+import multiprocessing
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -162,15 +205,23 @@ from zpc_tpu_torch import _kernels, scenes  # noqa: E402
 from zpc_tpu_torch.containers import bvh as bvh_mod  # noqa: E402
 from zpc_tpu_torch.ops import nse as nse_op  # noqa: E402
 from zpc_tpu_torch.ops import scan as scan_op  # noqa: E402
+from zpc_tpu_torch.geometry import levelset  # noqa: E402
+from zpc_tpu_torch.geometry.collider import (Collider,  # noqa: E402
+                                             ColliderType)
 from zpc_tpu_torch.math import solvers  # noqa: E402
+from zpc_tpu_torch.models import cfl as fl_cfl  # noqa: E402
+from zpc_tpu_torch.models import constitutive  # noqa: E402
 from zpc_tpu_torch.models.constitutive import FixedCorotated  # noqa: E402
 from zpc_tpu_torch.parallel import primitives  # noqa: E402
 from zpc_tpu_torch.sim import contact_implicit as ci  # noqa: E402
 from zpc_tpu_torch.sim import fluid as fl  # noqa: E402
 from zpc_tpu_torch.sim import fluid_binned2 as fb  # noqa: E402
+from zpc_tpu_torch.sim import implicit as imp  # noqa: E402
 from zpc_tpu_torch.sim import implicit_binned2 as ib2  # noqa: E402
 from zpc_tpu_torch.sim import mpm as mpm_mod  # noqa: E402
 from zpc_tpu_torch.sim import mpm_binned2 as b2  # noqa: E402
+from zpc_tpu_torch.sim import runner  # noqa: E402
+from zpc_tpu_torch.utils import io as io_mod  # noqa: E402
 
 N_MAIN, DX_MAIN, CHAIN = 262_144, 1.0 / 128, 720
 CFG_MAIN = b2.BinnedConfig2(bins_capacity=2560, block_capacity=2048)
@@ -222,6 +273,24 @@ N_CSMALL, CSMALL_STEPS, CSMALL_FLOOR, CSMALL_DHAT = 512, 20, 0.2, 0.02
 # grid side for phase 20's CSR
 CONFIG1_SIZES = (1_048_576, 16_777_216)
 LAPLACE_M = 64
+# the README's Quick start through Scene and simulate (1,000 steps, a
+# frame every 100, a checkpoint every 500) after the README's own loop of
+# unbinned steps; the same scene at dx = 1/32 with a sphere for the card
+# against the CPU
+N_README, DX_README, README_LOOP = 262_144, 1.0 / 128, 100
+README_STEPS, README_FRAME, README_CKPT, README_LATE = 1000, 100, 500, 700
+DX_SMALL_README, SMALL_README_STEPS = 1.0 / 32, 240
+# examples/mpm2d.py at its defaults (8,192 draws, dx = 1/128, dt = 1e-4;
+# impact near step 2,860), and the same discs at a user's scale (327,680
+# draws at dx = 1/1024, dt = 5e-5 under the CFL dt of 5.95e-5; impact
+# near step 5,700)
+N_DISCS, DT_DISCS, DISCS_UNBINNED, DISCS_BINNED = 8192, 1e-4, 200, 3000
+N_DISCS_BIG, DT_DISCS_BIG, DISCS_BIG_STEPS = 327_680, 5e-5, 7000
+# the paddle scene of phase 25; the incremental rebin's chain and bins
+# (3,072, benchmarks/probe_fluid_cost.py's, cannot hold the README scene's
+# reserve bins)
+REST_PADDLE_STEPS = 200
+REBIN_STEPS, REBIN_BINS = 1000, 4096
 HBM_BYTES_PER_MS = 3.35e12 / 1e3     # H100 SXM HBM3 rate (data sheet)
 _WINDOW = "timed calls"               # the profiler window of device_split
 
@@ -1044,7 +1113,7 @@ def _fluid_gates(sim, out, last, m0, n, cfg, what):
                                                 f"finite")
     cols = _alive_cols(out)
     check(cols.shape[0] == n, f"{what}: every particle alive in bin order")
-    lay = fb._LAY
+    lay = fb._fluid_layout(out.grid.dim)
     m1 = cols[:, lay["M"]].double().sum().item()
     check(abs(m1 - m0) <= 1e-9 * m0, f"{what}: particle mass unchanged "
                                      f"({m1:.9g})")
@@ -2133,6 +2202,541 @@ def containers_path(dev, card):
     return launches
 
 
+def _flipped(sim, st):
+    """The scene with its particles in reverse order (the same physics,
+    another summation order): every particle channel and every
+    per-particle model field (a Scene's Lame fields) flipped."""
+    p = st.particles
+    n, cap = p.size, p.capacity
+
+    def flip(v):
+        return torch.cat([v[:n].flip(0), v[n:]])
+    model = sim.model
+    per = {f.name: flip(getattr(model, f.name))
+           for f in dataclasses.fields(model)
+           if isinstance(getattr(model, f.name), torch.Tensor)
+           and getattr(model, f.name).dim() >= 1
+           and getattr(model, f.name).shape[0] == cap}
+    sim = dataclasses.replace(sim, model=dataclasses.replace(model, **per))
+    p = p.update(**{k: flip(v) for k, v in p.channels.items()})
+    return sim, mpm_mod.MPMState(p, st.grid, st.max_vel)
+
+
+def _unflip(ch, n):
+    return {k: torch.cat([v[:n].flip(0), v[n:]]) for k, v in ch.items()}
+
+
+def _within(g, c, other, tol, what, spread_of="the CPU's"):
+    """``g`` (the card's) within ``tol`` of ``c`` (the CPU's) plus twice
+    the spread over summation order between ``other`` (the same run with
+    its particles reversed) and its unreversed twin, as ROADMAP §3 holds
+    long runs: a contact amplifies fp32 rounding step by step."""
+    base = c if spread_of == "the CPU's" else g
+    for k in tol:
+        spread = (other[k].cpu() - base[k].cpu()).abs().max().item()
+        err = (g[k].cpu() - c[k]).abs().max().item()
+        check(err <= tol[k] + 2 * spread,
+              f"{what}: {k} max abs diff {err:.3g} <= {tol[k]} + twice "
+              f"{spread_of} own spread over summation order {spread:.3g}")
+
+
+def _state_gates(out, m0, n, y_min, what):
+    """A final MPMState: finite channels, particle mass unchanged, no
+    particle below ``y_min``."""
+    p = out.particles
+    fin = all(bool(torch.isfinite(p[k][:n]).all()) for k in ("x", "v", "F",
+                                                            "C"))
+    check(fin, f"{what}: x, v, F, C finite")
+    m1 = p["m"][:n].double().sum().item()
+    check(abs(m1 - m0) <= 1e-9 * m0, f"{what}: particle mass unchanged "
+                                     f"({m1:.9g})")
+    lo = p["x"][:n, 1].min().item()
+    check(lo >= y_min, f"{what}: no particle below y = {y_min:.6f} (y min "
+                       f"{lo:.6f})")
+
+
+def _event_seconds(fn):
+    """(result, seconds) of ``fn()`` between two CUDA events."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1) / 1e3
+
+
+def readme_path(dev, card, tmp):
+    phase("21 the README's Scene -> simulate at full width")
+    sim, st, dt = scenes.readme_scene(DX_README, dev)
+    n = st.particles.size
+    cfg = runner._binned2_config(st.particles.capacity)
+    check(n == N_README, f"Scene(dx=1/128).add_cube([0.5, 0.6, 0.5], 0.25) "
+                         f"on the card: {n} particles (a 64^3 lattice), dt "
+                         f"{dt:.6e} from suggest_dt, the runner's "
+                         f"{cfg.bins_capacity} bins")
+    m0 = st.particles["m"][:n].double().sum().item()
+
+    def readme_loop():
+        s = st
+        for _ in range(README_LOOP):
+            s = mpm_mod.explicit_step(sim, s, dt)
+        return s
+    s, sec = _event_seconds(readme_loop)
+    ms = sec * 1e3 / README_LOOP
+    print(f"  the README's loop, {README_LOOP} unbinned explicit_steps: "
+          f"{ms:.4f} ms/step = {n / ms / 1e3:.4f} M particle-steps/s "
+          f"({card})", flush=True)
+    check(bool(torch.isfinite(s.particles["v"]).all()),
+          "the README's loop: v finite")
+
+    frames, seg_launches = {}, []
+
+    def on_frame(i, state):
+        seg_launches.append(scan_op.LAUNCHES)
+        frames[i] = tuple(state.particles[k][:n].cpu().numpy()
+                          for k in ("x", "v"))
+    prefix, ckpt = os.path.join(tmp, "frame"), os.path.join(tmp, "ckpt.npz")
+    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    with recorded_scans() as calls:
+        out, sec = _event_seconds(lambda: runner.simulate(
+            sim, st, dt=dt, steps=README_STEPS, path="binned2",
+            frame_every=README_FRAME, frame_prefix=prefix,
+            checkpoint_every=README_CKPT, checkpoint_path=ckpt,
+            on_frame=on_frame))
+    launches = scan_op.LAUNCHES
+    check(nse_op.LAUNCHES == 0, "the runner launched no NSE kernel")
+    per_seg = np.diff([0] + seg_launches).tolist()
+    segs = README_STEPS // README_FRAME
+    rebins = [(k - 4) / 5 for k in per_seg]
+    print(f"  simulate: {README_STEPS} steps in {segs} rollout_binned2 "
+          f"segments, scan launches per segment {per_seg} (4 in each "
+          f"bin_state, 5 in each rebin); {sec:.3f} s with the scans "
+          f"recorded", flush=True)
+    check(len(per_seg) == segs and all(r >= 0 and r == int(r)
+                                       for r in rebins),
+          f"every segment launched its bin_state's 4 scans and 5 per rebin "
+          f"(rebins per segment {[int(r) for r in rebins]})")
+    late = sum(int(r) for r, i in zip(rebins, range(
+        README_FRAME, README_STEPS + 1, README_FRAME)) if i > README_LATE)
+    check(late >= 1, f"{late} rebins in the segments past step "
+                     f"{README_LATE} (the block reaches the ground near step "
+                     f"770; free fall is translation, which recentering "
+                     f"absorbs): the scan ran inside the chain")
+    check(len(calls) == launches, f"{launches} scans recorded")
+    sizes = replay_scans(calls)
+    check(True, f"every runner scan = plain on the same input, ints exact; "
+                f"(n, op): {sizes}")
+    check(sorted(frames) == list(range(README_FRAME, README_STEPS + 1,
+                                       README_FRAME)),
+          f"{len(frames)} frames, on_frame at {sorted(frames)}")
+    for i, (x, v) in frames.items():
+        pos, attrs = io_mod.read_bgeo(f"{prefix}.{i:05d}.bgeo")
+        if not (np.array_equal(pos, x) and np.array_equal(attrs["v"], v)):
+            raise AssertionError(f"frame {i}: the bgeo file differs from "
+                                 f"the state on_frame saw")
+    check(True, f"each of the {len(frames)} bgeo frames read back by "
+                f"read_bgeo = the x and v on_frame saw, bit for bit")
+    back = io_mod.load_state(ckpt, _zeroed(out))
+    _same_tree(back, out, "checkpoint")
+    check(True, f"the checkpoint of step {README_STEPS} reloads bit for bit "
+                f"(dtypes and devices of the state)")
+    _state_gates(out, m0, n, 0.05 - DX_README, "runner")
+    lo = min(float(x[:, 1].min()) for x, _ in frames.values())
+    check(lo >= 0.05 - DX_README, f"no particle below y = 0.05 - dx in any "
+                                  f"frame (y min {lo:.6f})")
+    for io_on in (True, False):
+        kw = (dict(frame_every=README_FRAME, frame_prefix=prefix,
+                   checkpoint_every=README_CKPT, checkpoint_path=ckpt)
+              if io_on else {})
+        _, sec = _event_seconds(lambda: runner.simulate(
+            sim, st, dt=dt, steps=README_STEPS, path="binned2", **kw))
+        ms = sec * 1e3 / README_STEPS
+        print(f"  simulate {README_STEPS} steps "
+              f"{'with' if io_on else 'without'} frames and checkpoints: "
+              f"{ms:.4f} ms/step = {n / ms / 1e3:.4f} M particle-steps/s "
+              f"({card})", flush=True)
+    return sim, st, dt, launches
+
+
+def _zeroed(obj):
+    if isinstance(obj, torch.Tensor):
+        return torch.zeros_like(obj)
+    if isinstance(obj, dict):
+        return {k: _zeroed(v) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _zeroed(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def _same_tree(got, ref, what):
+    if isinstance(ref, torch.Tensor):
+        if not (got.dtype == ref.dtype and got.device == ref.device and
+                torch.equal(got, ref)):
+            raise AssertionError(f"{what} differs")
+    elif isinstance(ref, dict):
+        for k in ref:
+            _same_tree(got[k], ref[k], f"{what}/{k}")
+    elif dataclasses.is_dataclass(ref):
+        for f in dataclasses.fields(ref):
+            _same_tree(getattr(got, f.name), getattr(ref, f.name),
+                       f"{what}/{f.name}")
+    elif got != ref:
+        raise AssertionError(f"{what} differs")
+
+
+def _readme_small(where, reverse):
+    sim, st, dt = scenes.readme_scene(DX_SMALL_README, where, sphere=True)
+    if reverse:
+        sim, st = _flipped(sim, st)
+    out = runner.simulate(sim, st, dt=dt, steps=SMALL_README_STEPS,
+                          path="binned2")
+    ch = out.particles.channels
+    n = st.particles.size
+    return (_unflip(ch, n) if reverse else ch), n
+
+
+def readme_card_vs_cpu(dev):
+    phase("22 Scene and runner, card against CPU, same port")
+    g, n = _readme_small(dev, False)
+    c, _ = _readme_small(torch.device("cpu"), False)
+    c_rev, _ = _readme_small(torch.device("cpu"), True)
+    print(f"  the README scene at dx = 1/32 with a sphere: {n} particles "
+          f"(4,096 in the cube, {n - 4096} seeded in the sphere by "
+          f"sample_levelset), {SMALL_README_STEPS} steps through simulate",
+          flush=True)
+    check(n > 4096, "add_sphere seeded particles")
+    _within(g, c, c_rev, TOL, "card against CPU")
+
+
+def _discs_run(where, steps, binned, reverse=False):
+    """examples/mpm2d.py's discs at their defaults: ``steps`` unbinned
+    explicit_steps or one rollout_binned2 (the example's bins).  Returns
+    (channels in the scene's order, particle count, overflow)."""
+    sim, st = scenes.discs_2d(N_DISCS, 1.0 / 128, where)
+    n = st.particles.size
+    if reverse:
+        sim, st = _flipped(sim, st)
+    overflow = False
+    if binned:
+        cfg = scenes.discs_2d_config(st.particles.capacity)
+        out, overflow = b2.rollout_binned2(sim, st, DT_DISCS, cfg, steps)
+        overflow = bool(overflow)
+    else:
+        out = st
+        for _ in range(steps):
+            out = mpm_mod.explicit_step(sim, out, DT_DISCS)
+    ch = out.particles.channels
+    return (_unflip(ch, n) if reverse else ch), n, overflow
+
+
+def discs_cpu_reference(steps):
+    """Phase 23's binned run on the CPU (~130 s of the chip machine's
+    CPU), in a worker process that runs while the card works through
+    phase 22 and phase 23's own card runs.  Returns (channels, seconds,
+    overflow)."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    t0 = time.perf_counter()
+    ch, _, overflow = _discs_run(torch.device("cpu"), steps, True)
+    return ch, time.perf_counter() - t0, overflow
+
+
+def discs_card_vs_cpu(dev, binned_ref):
+    phase("23 2-D as published: examples/mpm2d.py, card against CPU")
+    cpu = torch.device("cpu")
+    for binned, steps in ((False, DISCS_UNBINNED), (True, DISCS_BINNED)):
+        scan_op.LAUNCHES = 0
+        g, n, g_over = _discs_run(dev, steps, binned)
+        launches = scan_op.LAUNCHES
+        if binned:
+            c, sec, c_over = binned_ref.result()
+            where = "a worker process's"
+        else:
+            t0 = time.perf_counter()
+            c, _, c_over = _discs_run(cpu, steps, binned)
+            sec, where = time.perf_counter() - t0, "the CPU's"
+        what = f"{n} particles, {steps} {'binned' if binned else 'unbinned'} " \
+            f"steps"
+        check(not (g_over or c_over), f"{what}: no overflow on the card or "
+                                      f"the CPU")
+        print(f"  {what}: {where} run on the CPU took {sec:.1f} s",
+              flush=True)
+        if binned:
+            check(launches > 4, f"{what}: {launches} scan launches (4 in "
+                                f"bin_state, the rest in rebins after the "
+                                f"impact near step 2,860)")
+            # the CPU takes ~40 ms a binned step here: the spread over
+            # summation order comes from a reversed run on the card
+            g_rev, _, _ = _discs_run(dev, steps, binned, True)
+            _within(g, c, g_rev, TOL, what, spread_of="the card's")
+        else:
+            c_rev, _, _ = _discs_run(cpu, steps, binned, True)
+            _within(g, c, c_rev, TOL, what)
+        y = g["x"][:n, 1].min().item()
+        print(f"  {what}: y min {y:.6f}", flush=True)
+
+
+def discs_at_scale(dev, card):
+    phase("24 2-D at a user's scale")
+    sim, st = scenes.discs_2d(N_DISCS_BIG, 1.0 / 1024, dev,
+                              block_capacity=8192)
+    n = st.particles.size
+    cfg = scenes.discs_2d_config(st.particles.capacity, 8192)
+    m0 = st.particles["m"][:n].double().sum().item()
+    bst = b2.bin_state(sim, st, cfg)
+    blocks = int(bst.grid.table.count)
+    print(f"  {N_DISCS_BIG} draws, {n} particles at dx = 1/1024, dt "
+          f"{DT_DISCS_BIG} (CFL dt at cfl 0.5: "
+          f"{float(0.5 / 1024 / fl_cfl.sound_speed(5e4, 0.3, 1e3)):.4e}), "
+          f"{cfg.bins_capacity} bins, {blocks} active blocks of "
+          f"block_capacity 8192", flush=True)
+    check(not bool(bst.overflow), "bin_state: no overflow")
+    rebins = [0]
+
+    def rebin(s):
+        rebins[0] += 1
+        return b2.rebin_adaptive(sim, s, cfg)
+    scan_op.LAUNCHES = 0
+    with recorded_scans() as calls:
+        bst = b2.bin_state(sim, st, cfg)
+        out, sec = _event_seconds(lambda: b2.adaptive_chain(
+            lambda s: b2.explicit_step_binned2(sim, s, DT_DISCS_BIG, cfg,
+                                               rebin=False),
+            rebin, bst, DISCS_BIG_STEPS))
+    launches = scan_op.LAUNCHES
+    ms = sec * 1e3 / DISCS_BIG_STEPS
+    print(f"  one {DISCS_BIG_STEPS}-step chain (rollout_binned2's): "
+          f"{sec:.3f} s = {ms:.4f} ms/step = {n / ms / 1e3:.4f} M "
+          f"particle-steps/s, {rebins[0]} rebins, {launches} scan launches "
+          f"({card})", flush=True)
+    check(rebins[0] >= 1 and launches == 4 + 5 * rebins[0],
+          f"{rebins[0]} rebins in the chain (impact near step 5,700), each "
+          f"5 scan launches")
+    check(len(calls) == launches, f"{launches} scans recorded")
+    sizes = replay_scans(calls)
+    check(True, f"every scan = plain on the same input, ints exact; "
+                f"(n, op): {sizes}")
+    check(not bool(out.overflow), "no overflow")
+    check(bool(torch.isfinite(out.cols).all()), "every column finite")
+    cols = _alive_cols(out)
+    check(cols.shape[0] == n, "every particle alive in bin order")
+    m1 = cols[:, 12].double().sum().item()
+    check(abs(m1 - m0) <= 1e-9 * m0, f"particle mass unchanged ({m1:.9g})")
+    lo = cols[:, 1].min().item()
+    floor = 0.1 - 1.0 / 1024 - 1e-3
+    check(lo >= floor, f"no particle below y = {floor:.6f} (y min "
+                       f"{lo:.6f})")
+    return launches, {"ms_per_step": ms, "pps": n / ms * 1e3,
+                      "rebins": rebins[0]}
+
+
+def _rest_runs(where):
+    """Phase 25's small scenes on ``where``: the 2-D fluid unbinned (one
+    step of 256) and binned (4 steps of 384), the 2-D implicit step on a
+    strained F, the cubic-B-spline step, and a block falling past a
+    rotating paddle (a TransformedLevelSet collider, slip) on the binned
+    path."""
+    f32 = dict(dtype=torch.float32, device=where)
+    rng = np.random.default_rng(0)
+    res = {}
+    eos = constitutive.EquationOfState(torch.tensor(0.0, **f32),
+                                       torch.tensor(1e4, **f32),
+                                       torch.tensor(7.15, **f32))
+    fsim = mpm_mod.MPMSim(eos, torch.tensor([0.0, -9.8], **f32))
+    x = rng.uniform(0.3, 0.7, (256, 2)).astype(np.float32)
+    res["fluid 2-D"] = fl.explicit_fluid_step(fsim, fl.make_fluid_state(
+        x, dx=0.05, device=where, block_capacity=256), 1e-4)
+    x = rng.uniform(0.3, 0.7, (384, 2)).astype(np.float32)
+    v0 = np.broadcast_to(np.float32([0.1, -0.4]), (384, 2))
+    res["fluid 2-D binned"], _ = fb.rollout_fluid_binned2(
+        fsim, fl.make_fluid_state(x, dx=0.05, device=where,
+                                  block_capacity=256, velocity=v0),
+        1e-4, b2.BinnedConfig2(bins_capacity=64), 4)
+    esim = mpm_mod.MPMSim(FixedCorotated.from_young_poisson(1e4, 0.3,
+                                                            device=where),
+                          torch.tensor([0.0, -9.8], **f32))
+    x = rng.uniform(0.3, 0.7, (512, 2)).astype(np.float32)
+    st = mpm_mod.make_mpm_state(x, dx=0.05, device=where, block_capacity=256)
+    st = mpm_mod.MPMState(st.particles.update(F=torch.diag(torch.tensor(
+        [1.05, 0.97], **f32)).expand(512, 2, 2).clone()), st.grid,
+        st.max_vel)
+    res["implicit 2-D"] = imp.implicit_step(esim, st, 1e-3, cg_iters=60)
+    x = rng.uniform(0.3, 0.7, (256, 3)).astype(np.float32)
+    osim = mpm_mod.MPMSim(FixedCorotated.from_young_poisson(1e4, 0.3,
+                                                            device=where),
+                          torch.tensor([0.0, -9.8, 0.0], **f32), order=3)
+    out = mpm_mod.make_mpm_state(x, dx=0.05, device=where, block_capacity=256)
+    for _ in range(5):
+        out = mpm_mod.explicit_step(osim, out, 1e-3)
+    res["order 3"] = out
+    return res
+
+
+def _paddle_run(where, reverse):
+    """Phase 5's block (4,096 particles, dx = 1/32) falling for
+    REST_PADDLE_STEPS binned steps onto a tilted slab that spins about y
+    and rises (a TransformedLevelSet of a Cuboid, slip)."""
+    f32 = dict(dtype=torch.float32, device=where)
+    R = torch.tensor([[0.8, -0.6, 0.0], [0.6, 0.8, 0.0], [0.0, 0.0, 1.0]],
+                     **f32)
+    paddle = Collider(levelset.TransformedLevelSet(
+        levelset.Cuboid(torch.tensor([-0.2, -0.02, -0.2], **f32),
+                        torch.tensor([0.2, 0.02, 0.2], **f32)),
+        R, torch.tensor([0.5, 0.35, 0.5], **f32),
+        torch.tensor([0.0, 0.1, 0.0], **f32),
+        torch.tensor([0.0, 2.0, 0.0], **f32)), ColliderType.slip)
+    sim, st, dt = scenes.mpm_block(4096, 1.0 / 32, where, block_capacity=256)
+    sim = dataclasses.replace(sim, colliders=sim.colliders + (paddle,))
+    if reverse:
+        sim, st = _flipped(sim, st)
+    out, overflow = b2.rollout_binned2(
+        sim, st, dt, b2.BinnedConfig2(bins_capacity=96, block_capacity=256),
+        REST_PADDLE_STEPS)
+    check(not bool(overflow), f"paddle on {where}: no overflow")
+    ch = out.particles.channels
+    return _unflip(ch, 4096) if reverse else ch
+
+
+def rest_card_vs_cpu(dev):
+    phase("25 the rest of the family, card against CPU")
+    g, c = _rest_runs(dev), _rest_runs(torch.device("cpu"))
+    tols = {"fluid 2-D": TOL_FLUID, "fluid 2-D binned": TOL_FLUID,
+            "implicit 2-D": TOL_IMP, "order 3": TOL}
+    for name, tol in tols.items():
+        a, b = g[name].particles, c[name].particles
+        for k, t in tol.items():
+            err = (a[k].cpu() - b[k]).abs().max().item()
+            check(bool(torch.isfinite(a[k]).all()) and err <= t,
+                  f"{name}: {k} max abs diff {err:.3g} <= {t}")
+    gp = _paddle_run(dev, False)
+    cp, cp_rev = (_paddle_run(torch.device("cpu"), r) for r in (False, True))
+    moved = (gp["v"][:, 0].abs().max()).item()
+    check(moved > 1e-3, f"the paddle pushed the block sideways (max |v_x| "
+                        f"{moved:.4f})")
+    _within(gp, cp, cp_rev, TOL, f"paddle, {REST_PADDLE_STEPS} steps")
+
+
+def _movers(sim, s):
+    """The particles the incremental rebin's guard band would move: a
+    stencil base within one cell of its bin's window edge."""
+    grid, alive = s.grid, s.pid >= 0
+    base = torch.floor((s.cols[:, :3] - grid.origin) / grid.dx - 0.5).to(
+        torch.int32)
+    slot = torch.where(s.bin_block >= 0, s.bin_block, 0).long()
+    off = base - (grid.table.active_coords[slot] * 4).repeat_interleave(
+        b2.K, 0)
+    return int((alive & ((off < 1) | (off > b2.SIDE - 4)).any(-1)).sum())
+
+
+def _migration_run(sim, st, dt, cfg, keep=0):
+    """A REBIN_STEPS chain of adaptive_chain(explicit_step_binned2,
+    rebin_adaptive) under ``cfg``; each rebin timed and classified (a
+    migration keeps the table), with the number of particles it had to
+    move; the states before the first ``keep`` migrations and their
+    results kept."""
+    log = {"migrations": [], "fallbacks": [], "kept": [], "movers": []}
+
+    def rebin(s):
+        if cfg.migrate_capacity:
+            log["movers"].append(_movers(sim, s))
+        out, sec = _event_seconds(lambda: b2.rebin_adaptive(sim, s, cfg))
+        migrated = out.grid.table is s.grid.table
+        log["migrations" if migrated else "fallbacks"].append(sec * 1e3)
+        if migrated and len(log["kept"]) < keep:
+            log["kept"].append((s, out))
+        return out
+    bst = b2.bin_state(sim, st, cfg)
+    check(not bool(bst.overflow), f"bin_state at {cfg.bins_capacity} bins: "
+                                  f"no overflow")
+    out = b2.adaptive_chain(
+        lambda s: b2.explicit_step_binned2(sim, s, dt, cfg, rebin=False),
+        rebin, bst, REBIN_STEPS)
+    check(not bool(out.overflow), f"{REBIN_STEPS} steps at "
+                                  f"{cfg.bins_capacity} bins: no overflow")
+    return b2.unbin_state(out, st), log
+
+
+def incremental_rebin(sim, st, dt, card):
+    phase("26 the incremental rebin")
+    small = b2.BinnedConfig2(bins_capacity=3072, migrate_capacity=8192,
+                             reserve_bins=1)
+    over = bool(b2.bin_state(sim, st, small).overflow)
+    p = st.particles
+    n = p.size
+    keys = b2._bin_keys(p["x"], p.mask, st.grid, sim.order)
+    _, counts = torch.unique(keys[p.mask], return_counts=True)
+    need = int(((counts + b2.K - 1) // b2.K).sum()) + counts.numel()
+    print(f"  BinnedConfig2(bins_capacity=3072, migrate_capacity=8192, "
+          f"reserve_bins=1) (benchmarks/probe_fluid_cost.py's): bin_state "
+          f"overflow {over}; the scene's {counts.numel()} block groups need "
+          f"{need} bins with one reserve bin each, so the phase runs at "
+          f"{REBIN_BINS}", flush=True)
+    check(need <= REBIN_BINS, f"{REBIN_BINS} bins hold the start")
+    cfgs = {"as specified": dataclasses.replace(small,
+                                                bins_capacity=REBIN_BINS),
+            "wide": b2.BinnedConfig2(bins_capacity=REBIN_BINS,
+                                     migrate_capacity=n // 2,
+                                     reserve_bins=1),
+            "full": b2.BinnedConfig2(bins_capacity=REBIN_BINS)}
+    scan_op.LAUNCHES = 0
+    runs = {}
+    with recorded_scans() as calls:
+        for name, cfg in cfgs.items():
+            runs[name] = _migration_run(sim, st, dt, cfg,
+                                        keep=2 if name == "wide" else 0)
+    launches = scan_op.LAUNCHES
+    sizes = replay_scans(calls)
+    check(len(calls) == launches, f"{launches} scan launches, all "
+                                  f"replayed = plain; (n, op): {sizes}")
+    for name, (_, log) in runs.items():
+        mv = log["movers"]
+        print(f"  {name} (migrate_capacity "
+              f"{cfgs[name].migrate_capacity}): {len(log['migrations'])} "
+              f"migrations, {len(log['fallbacks'])} full rebins in "
+              f"{REBIN_STEPS} steps" + (
+                  f"; particles to move at each rebin: min {min(mv)}, "
+                  f"median {int(np.median(mv))}, max {max(mv)}" if mv
+                  else ""), flush=True)
+    mig, log = runs["wide"]
+    nm = len(log["migrations"])
+    check(nm >= 2, f"{nm} migrations at migrate_capacity {n // 2} (at least "
+                   f"two to check)")
+    cfg, cpu = cfgs["wide"], torch.device("cpu")
+    for k, (before, after) in enumerate(log["kept"]):
+        ref, ok = b2._rebin_incremental(_to_device(sim, cpu),
+                                        _to_device(before, cpu), cfg,
+                                        cfg.migrate_capacity)
+        check(bool(ok), f"migration {k + 1}: the CPU port migrates too")
+        for name in ("pid", "bin_block", "cols"):
+            if not torch.equal(getattr(after, name).cpu(),
+                               getattr(ref, name)):
+                raise AssertionError(f"migration {k + 1}: {name} differs "
+                                     f"from the CPU port's")
+        check(True, f"migration {k + 1} on the card = the CPU port's (pid, "
+                    f"bin_block and columns exact)")
+    ref, flog = runs["full"]
+    other = runs["as specified"][0]
+    for k in ("x", "v", "F"):
+        spread = (other.particles[k][:n] - ref.particles[k][:n]).abs() \
+            .max().item()
+        err = (mig.particles[k][:n] - ref.particles[k][:n]).abs().max() \
+            .item()
+        check(err <= TOL[k] + 2 * spread,
+              f"the chain with migrations against the chain with full "
+              f"rebins: {k} max abs diff {err:.3g} <= {TOL[k]} + twice the "
+              f"spread between the chain as specified and the one with "
+              f"full rebins {spread:.3g}")
+    mig_ms = float(np.median(log["migrations"]))
+    full_ms = float(np.median(flog["fallbacks"]))
+    print(f"  ms per migration (median of {nm}): {mig_ms:.4f}; ms per full "
+          f"rebin at the same {REBIN_BINS} bins (median of "
+          f"{len(flog['fallbacks'])}): {full_ms:.4f} ({card})", flush=True)
+    return launches, {"migrations": nm, "migration_ms": mig_ms,
+                      "full_rebin_ms": full_ms}
+
+
 def main():
     card = environment()
     dev = zpc_tpu_torch.cuda_device(0)
@@ -2156,13 +2760,28 @@ def main():
     contact_card_vs_cpu(dev)
     config1_launches, _ = config1(dev, card)
     container_launches = containers_path(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        rsim, rst, rdt, readme_launches = readme_path(dev, card, tmp)
+    # phase 23's CPU reference runs in a worker process beside the untimed
+    # phases 22-23 (after every timed phase before them)
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        discs_ref = pool.submit(discs_cpu_reference, DISCS_BINNED)
+        readme_card_vs_cpu(dev)
+        discs_card_vs_cpu(dev, discs_ref)
+    discs_launches, _ = discs_at_scale(dev, card)
+    rest_card_vs_cpu(dev)
+    migrate_launches, _ = incremental_rebin(rsim, rst, rdt, card)
     per_path = {"elastic block (phase 4)": launches,
                 "dam break (phase 10)": fluid_launches,
                 "materials (phase 12)": mat_launches,
                 "implicit block (phase 13)": imp_launches,
                 "mesh contact (phase 16)": contact_launches,
                 "config 1 (phase 19)": config1_launches,
-                "containers, CSR, graphs (phase 20)": container_launches}
+                "containers, CSR, graphs (phase 20)": container_launches,
+                "README scene through simulate (phase 21)": readme_launches,
+                "2-D discs at scale (phase 24)": discs_launches,
+                "incremental rebin (phase 26)": migrate_launches}
     print(f"  scan launches per path: {per_path}; total "
           f"{sum(per_path.values())}", flush=True)
     launches = sum(per_path.values())

@@ -262,14 +262,29 @@ def test_implicit_step_matches_jax(case, monkeypatch):
     assert v.abs().max().item() < 10.0
 
 
-def test_implicit_step_rejects_2d():
-    sim, st = _jsetup()
-    tst = interop.state_from_jax(st, CPU)
-    grid2 = type(tst.grid)(tst.grid.table, tst.grid.data, tst.grid.transform,
-                           tst.grid.block_size, 2)
-    with pytest.raises(NotImplementedError, match="3-D"):
-        timp.implicit_step(interop.sim_from_jax(sim, CPU),
-                           type(tst)(tst.particles, grid2, tst.max_vel), 1e-3)
+def test_implicit_step_rejects_2d(monkeypatch):
+    """The 2-D step, which the port once refused, against JAX's from a
+    strained F = diag(1.05, 0.97) at dt 1e-3: the same CG counts and the
+    same tolerances as the 3-D cases.  (From rest JAX's 2-D force
+    differential is NaN, the port's is not: tests/test_torch_mpm2d.py.)"""
+    rng = np.random.default_rng(11)
+    x = jnp.asarray(rng.uniform(0.3, 0.7, (N, 2)), jnp.float32)
+    st = jmpm.make_mpm_state(x, dx=0.05, block_capacity=256)
+    st = type(st)(st.particles.update(F=jnp.broadcast_to(
+        jnp.diag(jnp.asarray([1.05, 0.97])), (N, 2, 2))), st.grid,
+        st.max_vel)
+    sim = jmpm.MPMSim(model=jc.FixedCorotated.from_young_poisson(1e4, 0.3),
+                      gravity=jnp.asarray([0.0, -9.8]))
+    jcounts = _counting(jimp, monkeypatch)
+    ref, jiters = jax.jit(lambda s: (jimp.implicit_step(
+        sim, s, jnp.float32(1e-3), cg_iters=60), list(jcounts)))(st)
+    titers = _counting(timp, monkeypatch)
+    out = timp.implicit_step(interop.sim_from_jax(sim, CPU),
+                             interop.state_from_jax(st, CPU), 1e-3,
+                             cg_iters=60)
+    assert out.grid.dim == 2
+    assert [int(i) for i in jiters] == titers and min(titers) > 0
+    _assert_states(out, ref, st)
 
 
 CG_ITERS, CG_TOL = 60, 1e-3

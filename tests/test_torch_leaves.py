@@ -60,8 +60,15 @@ def test_bspline_weights(rng):
     _close(tdw.numpy(), jdw, atol=1e-7)
     _close(tw.sum(-1).numpy(), np.ones((2000, 3)), atol=1e-6)
     assert stencil_size(2) == 3
-    with pytest.raises(NotImplementedError):
-        bspline_weights(_t(x), 3)
+    # the linear and cubic kernels: order 3's fx is taken from base + 1
+    for order in (1, 3):
+        jb, jw, jdw = j_bspline_weights(jnp.asarray(x), order)
+        tb, tw, tdw = bspline_weights(_t(x), order)
+        np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+        _close(tw.numpy(), jw, atol=1e-7)
+        _close(tdw.numpy(), jdw, atol=1e-7)
+        _close(tw.sum(-1).numpy(), np.ones((2000, 3)), atol=1e-6)
+        assert stencil_size(order) == order + 1
 
 
 def _strained(rng, n=512, strain=0.15):

@@ -400,8 +400,18 @@ def test_interop_accepts_every_model():
         mu: float = 1.0
     with pytest.raises(NotImplementedError):
         interop.sim_from_jax(_jsim(plasticity=Unknown()), CPU)
-    with pytest.raises(NotImplementedError):
-        interop.sim_from_jax(dataclasses.replace(_jsim(), order=3), CPU)
+    # cubic B-splines are ported: the order converts, and one step of the
+    # order-3 transfer matches JAX's
+    jsim3 = dataclasses.replace(_jsim(), order=3)
+    tsim3 = interop.sim_from_jax(jsim3, CPU)
+    assert tsim3.order == 3
+    x = jnp.asarray(np.random.default_rng(5).uniform(0.3, 0.7, (256, 3)),
+                    jnp.float32)
+    jst = jmpm.make_mpm_state(x, dx=0.05, block_capacity=256)
+    ref = jax.jit(lambda s: jmpm.explicit_step(jsim3, s,
+                                               jnp.float32(1e-4)))(jst)
+    out = tmpm.explicit_step(tsim3, interop.state_from_jax(jst, CPU), 1e-4)
+    _assert_states(out, ref)
 
 
 def test_binstate_from_jax_layouts(rng):

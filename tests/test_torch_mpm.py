@@ -359,19 +359,25 @@ def test_interop_round_trip(rng):
     assert float(tsim.model.mu) == float(_jsim().model.mu)
     assert tsim.colliders[0].kind.value == "separate"
     assert tsim.colliders[0].friction == pytest.approx(0.3)
-    with pytest.raises(NotImplementedError):
-        interop.config_from_jax(jb2.BinnedConfig2(bins_capacity=8,
-                                                  migrate_capacity=4))
+    assert interop.config_from_jax(jb2.BinnedConfig2(
+        bins_capacity=8, migrate_capacity=4)) == tb2.BinnedConfig2(
+            bins_capacity=8, migrate_capacity=4)
 
 
 @pytest.mark.parametrize("field", [dict(slack=0), dict(reserve_bins=1),
                                    dict(recenter=False),
                                    dict(migrate_capacity=4)])
 def test_config_from_jax_rejects_unported(field):
-    """The port fixes slack 1, no reserve bins and recentering, and has no
-    incremental rebin; the TPU-only restructurings convert silently."""
-    with pytest.raises(NotImplementedError):
-        interop.config_from_jax(jb2.BinnedConfig2(bins_capacity=8, **field))
+    """The port fixes slack 1 and recentering: other values raise.  The
+    reserve bins and the incremental rebin's capacity are ported and
+    convert as they are; the TPU-only restructurings convert silently."""
+    jcfg = jb2.BinnedConfig2(bins_capacity=8, **field)
+    if "slack" in field or "recenter" in field:
+        with pytest.raises(NotImplementedError):
+            interop.config_from_jax(jcfg)
+    else:
+        assert interop.config_from_jax(jcfg) == tb2.BinnedConfig2(
+            bins_capacity=8, **field)
     cfg = interop.config_from_jax(jb2.BinnedConfig2(
         bins_capacity=8, block_capacity=64, chunk_bins=4, sort_chunk=2,
         use_segments=True))

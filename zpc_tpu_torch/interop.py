@@ -3,9 +3,11 @@
 The converters read the JAX package's dataclasses through ``numpy.asarray``
 and class names only, so this module imports no JAX: a caller that holds
 ``zpc_tpu`` objects already has JAX loaded.  Supported: the explicit MPM
-family (every elastic and plasticity model, FLIP, elastic, plastic and
-fluid states and bin states), the LBVH and the implicit step's mesh
-contact (``MeshContact``, ``ContactSet``); anything else raises.
+family in 2-D and 3-D (every analytic level set, every elastic and
+plasticity model, B-spline orders 1-3, FLIP, elastic, plastic and fluid
+states and bin states, configs with the incremental rebin), the LBVH and
+the implicit step's mesh contact (``MeshContact``, ``ContactSet``);
+anything else raises.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from .containers.block_table import BlockTable
 from .containers.bvh import LBvh
 from .containers.structured import StructuredField
 from .geometry.collider import Collider, ColliderType
-from .geometry.levelset import ComplementLevelSet, Cuboid, HalfSpace
+from .geometry import levelset as ls_mod
 from .geometry.sparse_grid import SparseGrid
 from .math.transform import Transform
 from .models import constitutive, plasticity
@@ -38,16 +40,25 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 
 
 def _levelset_from_jax(ls, device):
+    """Any analytic level set of ``zpc_tpu.geometry.levelset``, field for
+    field: arrays become tensors, ints (``orient``) stay, wrapped sets
+    convert in turn."""
     kind = type(ls).__name__
-    if kind == "HalfSpace":
-        return HalfSpace(_tensor(ls.origin, device),
-                         _tensor(ls.direction, device))
-    if kind == "Cuboid":
-        return Cuboid(_tensor(ls.minimum, device),
-                      _tensor(ls.maximum, device))
-    if kind == "ComplementLevelSet":
-        return ComplementLevelSet(_levelset_from_jax(ls.base, device))
-    raise NotImplementedError(f"level set {kind} is not ported")
+    cls = getattr(ls_mod, kind, None)
+    if cls is None or kind not in ls_mod.__all__ or kind == "LevelSet":
+        raise NotImplementedError(f"level set {kind} is not ported")
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(ls, f.name)
+        if f.name == "base":
+            kw[f.name] = _levelset_from_jax(v, device)
+        elif f.name == "sets":
+            kw[f.name] = tuple(_levelset_from_jax(s, device) for s in v)
+        elif isinstance(v, int):
+            kw[f.name] = v
+        else:
+            kw[f.name] = _tensor(v, device)
+    return cls(**kw)
 
 
 def _same_fields(obj, module, device):
@@ -69,10 +80,7 @@ def _same_fields(obj, module, device):
 def sim_from_jax(sim, device: torch.device) -> MPMSim:
     """``zpc_tpu.sim.mpm.MPMSim`` -> :class:`MPMSim`: the elastic model and
     the plasticity model field for field, gravity, the colliders' shapes,
-    kinds and friction, and the FLIP blend.  Orders other than 2 raise."""
-    if sim.order != 2:
-        raise NotImplementedError("only quadratic (order 2) B-splines are "
-                                  "ported")
+    kinds and friction, the B-spline order and the FLIP blend."""
     colliders = tuple(
         Collider(_levelset_from_jax(c.levelset, device),
                  ColliderType(c.kind.value), float(c.friction))
@@ -85,29 +93,41 @@ def sim_from_jax(sim, device: torch.device) -> MPMSim:
 
 
 def config_from_jax(cfg) -> BinnedConfig2:
-    """``zpc_tpu`` ``BinnedConfig2`` -> the port's.  ``chunk_bins``,
+    """``zpc_tpu`` ``BinnedConfig2`` -> the port's, with its incremental
+    rebin (``migrate_capacity``) and ``reserve_bins``.  ``chunk_bins``,
     ``sort_chunk`` and ``use_segments`` only restructure the TPU
-    computation, so they are dropped.  The port fixes slack 1, no reserve
-    bins and recentering, and has no incremental rebin: other values
-    raise."""
-    if cfg.migrate_capacity:
-        raise NotImplementedError("the incremental rebin "
-                                  "(migrate_capacity > 0) is not ported")
-    if cfg.slack != 1 or cfg.reserve_bins or not cfg.recenter:
+    computation, so they are dropped.  The port fixes slack 1 and
+    recentering: other values raise."""
+    if cfg.slack != 1 or not cfg.recenter:
         raise NotImplementedError(
-            "only slack=1, reserve_bins=0 and recenter=True are ported, got "
-            f"slack={cfg.slack}, reserve_bins={cfg.reserve_bins}, "
-            f"recenter={cfg.recenter}")
+            "only slack=1 and recenter=True are ported, got "
+            f"slack={cfg.slack}, recenter={cfg.recenter}")
     return BinnedConfig2(bins_capacity=cfg.bins_capacity,
-                         block_capacity=cfg.block_capacity)
+                         block_capacity=cfg.block_capacity,
+                         migrate_capacity=cfg.migrate_capacity,
+                         reserve_bins=cfg.reserve_bins)
 
 
-def _grid_from_jax(grid, device) -> SparseGrid:
+def _binned_origin(matrix: np.ndarray, dim: int) -> np.ndarray:
+    """The origin a ``zpc_tpu`` bin state's step uses: the transform's
+    column ``dim`` (column 2 in 2-D, where the other paths keep a 2-D
+    grid's origin in column 3)."""
+    return np.asarray(matrix)[:dim, dim]
+
+
+def _grid_from_jax(grid, device, binned: bool = False) -> SparseGrid:
+    """The grid field for field.  For a 2-D bin state (``binned``), the
+    origin its JAX step uses moves to column 3, where the port keeps it."""
     table = BlockTable(_tensor(grid.table.keys, device),
                        _tensor(grid.table.count, device), grid.table.dim)
     data = {k: _tensor(v, device) for k, v in grid.data.items()}
-    tr = (None if grid.transform is None
-          else Transform(_tensor(grid.transform.matrix, device)))
+    tr = None
+    if grid.transform is not None:
+        m = np.array(grid.transform.matrix)
+        if binned and grid.dim == 2:
+            m[:2, 3] = _binned_origin(m, 2)
+            m[:2, 2] = 0.0
+        tr = Transform(torch.from_numpy(m).to(device))
     return SparseGrid(table, data, tr, grid.block_size, grid.dim)
 
 
@@ -120,16 +140,21 @@ def state_from_jax(state, device: torch.device) -> MPMState:
                     _tensor(state.max_vel, device))
 
 
+# the bin-state widths per dimension: fluid, elastic, plastic
+_BIN_LAYOUTS = {3: (18, 26, 27), 2: (11, 14, 15)}
+
+
 def binstate_from_jax(st, device: torch.device) -> BinState:
-    """``zpc_tpu.sim.mpm_binned2.BinState`` (3-D: the 18-column fluid, the
-    26-column elastic or the 27-column plastic layout) ->
-    :class:`BinState`."""
-    if st.grid.dim != 3 or st.cols.shape[1] not in (18, 26, 27):
+    """``zpc_tpu.sim.mpm_binned2.BinState`` (the fluid, elastic and
+    plastic layouts: 18, 26 and 27 columns in 3-D, 11, 14 and 15 in 2-D)
+    -> :class:`BinState`."""
+    if st.cols.shape[1] not in _BIN_LAYOUTS.get(st.grid.dim, ()):
         raise NotImplementedError(
-            f"only the 3-D 18-, 26- and 27-column layouts are ported, got "
-            f"{st.grid.dim}-D with {st.cols.shape[1]} columns")
+            f"only the 3-D 18-, 26- and 27-column and the 2-D 11-, 14- and "
+            f"15-column layouts are ported, got {st.grid.dim}-D with "
+            f"{st.cols.shape[1]} columns")
     return BinState(_tensor(st.cols, device), _tensor(st.pid, device),
-                    _grid_from_jax(st.grid, device),
+                    _grid_from_jax(st.grid, device, binned=True),
                     _tensor(st.max_vel, device), _tensor(st.overflow, device),
                     _tensor(st.needs_rebin, device),
                     _tensor(st.bin_block, device), _tensor(st.nbr8, device))
@@ -139,7 +164,8 @@ def state_to_numpy(state) -> dict:
     """Numpy arrays of a state of either package (:class:`MPMState` or
     :class:`BinState`, or their ``zpc_tpu`` counterparts): the particle
     channels and ``max_vel`` for an MPM state; cols, pid, bin_block, nbr8,
-    flags, table keys and grid origin for a bin state."""
+    flags, table keys and the grid origin its step uses for a bin
+    state."""
     def arr(a):
         if isinstance(a, torch.Tensor):
             return a.detach().cpu().numpy()
@@ -148,13 +174,18 @@ def state_to_numpy(state) -> dict:
         out = {k: arr(v) for k, v in state.particles.channels.items()}
         out["max_vel"] = arr(state.max_vel)
         return out
+    dim = state.grid.dim
+    if isinstance(state.cols, torch.Tensor):
+        origin = arr(state.grid.origin)
+    else:
+        origin = _binned_origin(state.grid.transform.matrix, dim)
     return dict(cols=arr(state.cols), pid=arr(state.pid),
                 bin_block=arr(state.bin_block), nbr8=arr(state.nbr8),
                 overflow=arr(state.overflow),
                 needs_rebin=arr(state.needs_rebin),
                 table_keys=arr(state.grid.table.keys),
                 table_count=arr(state.grid.table.count),
-                origin=arr(state.grid.transform.matrix)[:3, 3])
+                origin=origin)
 
 
 _LBVH_FIELDS = [f.name for f in dataclasses.fields(LBvh)]

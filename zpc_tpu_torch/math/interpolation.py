@@ -1,6 +1,6 @@
 """B-spline interpolation weights (counterpart of
-``zpc_tpu/math/interpolation.py``); the port carries the quadratic kernel,
-which is the one the MPM path uses."""
+``zpc_tpu/math/interpolation.py``): linear, quadratic and cubic kernels,
+per axis, as small dense vectors over the stencil's nodes."""
 
 from __future__ import annotations
 
@@ -8,7 +8,8 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["stencil_size", "base_node", "quadratic_bspline_weights",
+__all__ = ["stencil_size", "base_node", "linear_bspline_weights",
+           "quadratic_bspline_weights", "cubic_bspline_weights",
            "bspline_weights"]
 
 _STENCIL = {1: 2, 2: 3, 3: 4}
@@ -18,17 +19,23 @@ def stencil_size(order: int) -> int:
     return _STENCIL[order]
 
 
-def _require_quadratic(order: int) -> None:
-    if order != 2:
-        raise NotImplementedError(
-            f"only quadratic (order 2) B-splines are ported, got {order}")
-
-
 def base_node(x_over_dx: torch.Tensor, order: int) -> torch.Tensor:
-    """Leftmost stencil node ``floor(x/dx - 0.5)`` for the quadratic
-    kernel, as int32."""
-    _require_quadratic(order)
-    return torch.floor(x_over_dx - 0.5).to(torch.int32)
+    """Leftmost stencil node as int32: ``floor(x)`` (linear), ``floor(x -
+    0.5)`` (quadratic), ``floor(x) - 1`` (cubic)."""
+    if order == 1:
+        return torch.floor(x_over_dx).to(torch.int32)
+    if order == 2:
+        return torch.floor(x_over_dx - 0.5).to(torch.int32)
+    if order == 3:
+        return torch.floor(x_over_dx).to(torch.int32) - 1
+    raise ValueError(order)
+
+
+def linear_bspline_weights(fx: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fx = x/dx - base``: weights over 2 nodes and d(weight)/d(fx)."""
+    one = torch.ones_like(fx)
+    return torch.stack([1.0 - fx, fx], -1), torch.stack([-one, one], -1)
 
 
 def quadratic_bspline_weights(fx: torch.Tensor
@@ -44,9 +51,36 @@ def quadratic_bspline_weights(fx: torch.Tensor
     return (torch.stack([w0, w1, w2], -1), torch.stack([dw0, dw1, dw2], -1))
 
 
+def cubic_bspline_weights(fx: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fx = x/dx - (base + 1)`` in [0, 1): weights over the 4 nodes at
+    distances ``1 + fx, fx, 1 - fx, 2 - fx`` and d(weight)/d(fx)."""
+    def far(d):    # 1 <= |d| < 2
+        return (2.0 - d) ** 3 / 6.0
+
+    def near(d):   # |d| < 1
+        return 0.5 * d ** 3 - d * d + 2.0 / 3.0
+
+    def dfar(d):
+        return -0.5 * (2.0 - d) ** 2
+
+    def dnear(d):
+        return 1.5 * d * d - 2.0 * d
+
+    d0, d1, d2, d3 = 1.0 + fx, fx, 1.0 - fx, 2.0 - fx
+    w = torch.stack([far(d0), near(d1), near(d2), far(d3)], -1)
+    dw = torch.stack([dfar(d0), dnear(d1), -dnear(d2), -dfar(d3)], -1)
+    return w, dw
+
+
 def bspline_weights(x_over_dx: torch.Tensor, order: int = 2):
     """Per-axis weights for a normalized position: ``(base [..., dim]
-    int32, w [..., dim, 3], dw [..., dim, 3])``, dw in grid units."""
+    int32, w [..., dim, S], dw [..., dim, S])``, dw in grid units."""
     base = base_node(x_over_dx, order)
-    w, dw = quadratic_bspline_weights(x_over_dx - base)
+    if order == 1:
+        w, dw = linear_bspline_weights(x_over_dx - base)
+    elif order == 2:
+        w, dw = quadratic_bspline_weights(x_over_dx - base)
+    else:
+        w, dw = cubic_bspline_weights(x_over_dx - (base + 1))
     return base, w, dw

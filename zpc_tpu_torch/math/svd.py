@@ -1,6 +1,7 @@
 """Small-matrix decompositions (counterpart of ``zpc_tpu/math/svd.py``):
-the symmetric 3x3 eigensolver, the 3x3 SVD and polar decomposition in the
-rotation convention, and the Newton polar factor of the corotated stress.
+the closed-form 2x2 SVD, the symmetric 3x3 eigensolver, the 3x3 SVD and
+polar decomposition in the rotation convention, the Newton polar factor of
+the corotated stress and the Gram-Schmidt 3x3 QR.
 
 Every routine is branch-free over batches, as in the JAX package: a fixed
 number of cyclic Jacobi sweeps, compare-swap sorting and ``where`` selects,
@@ -21,7 +22,8 @@ import torch
 
 from .vecmat import cof3, det3, mm33
 
-__all__ = ["eigh3x3", "svd3x3", "polar_decomposition", "polar_newton3x3"]
+__all__ = ["svd2x2", "eigh3x3", "svd3x3", "polar_decomposition",
+           "polar_newton3x3", "qr3x3"]
 
 
 def _jacobi_rotation(app, aqq, apq):
@@ -89,6 +91,57 @@ def eigh3x3(A: torch.Tensor, sweeps: int = 6):
     V = torch.stack([torch.stack([v[0][i], v[1][i], v[2][i]], -1)
                      for i in range(3)], -2)
     return torch.stack(w, -1), V
+
+
+def _safe_norm(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``sqrt(p^2 + q^2)``, whose derivative at p = q = 0 is taken as 0
+    (the double ``where``: the square root never sees 0, so its tangent
+    stays finite)."""
+    r2 = p * p + q * q
+    pos = r2 > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, r2, 1.0)), 0.0)
+
+
+def _safe_atan2(q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``atan2(q, p)``, 0 with a zero derivative at p = q = 0."""
+    pos = (p * p + q * q) > 0.0
+    return torch.where(pos, torch.atan2(torch.where(pos, q, 0.0),
+                                        torch.where(pos, p, 1.0)), 0.0)
+
+
+def svd2x2(A: torch.Tensor):
+    """Closed-form 2x2 SVD ``A = U diag(sigma) V^T`` with rotations U, V
+    (det +1) and signed sigma, the JAX package's formula: with E, F, G, H
+    the half sums and differences of the entries, ``sigma = (Q + R, Q -
+    R)`` for ``Q = |(E, H)|``, ``R = |(F, G)|``, and the angles of U and V
+    from ``atan2(G, F)`` and ``atan2(H, E)``.
+
+    The values are the JAX function's.  Its derivative is not where ``(F,
+    G)`` or ``(E, H)`` is 0 (F = I is one such point): JAX differentiates
+    ``sqrt`` and ``atan2`` at 0 and returns NaN there, while here both
+    take a zero derivative.  The rotation U V^T, which turns by ``atan2(H,
+    E)`` alone, keeps its exact derivative, and so does ``det A = Q^2 -
+    R^2``; what is lost is the split of a shear between the two singular
+    values, which has no derivative at equal singular values."""
+    a, b = A[..., 0, 0], A[..., 0, 1]
+    c, d = A[..., 1, 0], A[..., 1, 1]
+    E = 0.5 * (a + d)
+    F = 0.5 * (a - d)
+    G = 0.5 * (c + b)
+    H = 0.5 * (c - b)
+    Q = _safe_norm(E, H)
+    R = _safe_norm(F, G)
+    a1 = _safe_atan2(G, F)
+    a2 = _safe_atan2(H, E)
+    theta = 0.5 * (a2 - a1)   # V angle
+    phi = 0.5 * (a2 + a1)     # U angle
+    cU, sU = torch.cos(phi), torch.sin(phi)
+    cV, sV = torch.cos(theta), torch.sin(theta)
+    U = torch.stack([torch.stack([cU, -sU], -1),
+                     torch.stack([sU, cU], -1)], -2)
+    V = torch.stack([torch.stack([cV, sV], -1),
+                     torch.stack([-sV, cV], -1)], -2)
+    return U, torch.stack([Q + R, Q - R], -1), V
 
 
 def _svd3x3_impl(A: torch.Tensor, sweeps: int):
@@ -257,3 +310,19 @@ def polar_newton3x3(F: torch.Tensor, iters: int = 4,
         g = det.abs() ** (-1.0 / 3.0)
         X = 0.5 * (g[..., None, None] * X + inv_t / g[..., None, None])
     return X
+
+
+def qr3x3(A: torch.Tensor):
+    """3x3 QR by Gram-Schmidt: Q's first two columns from A's, the third
+    their cross product, ``R = Q^T A``."""
+    eps = 1e-12
+    a0 = A[..., :, 0]
+    q0 = a0 / torch.linalg.vector_norm(a0, dim=-1,
+                                       keepdim=True).clamp_min(eps)
+    a1 = A[..., :, 1]
+    a1p = a1 - torch.sum(a1 * q0, -1, keepdim=True) * q0
+    q1 = a1p / torch.linalg.vector_norm(a1p, dim=-1,
+                                        keepdim=True).clamp_min(eps)
+    q2 = torch.linalg.cross(q0, q1, dim=-1)
+    Q = torch.stack([q0, q1, q2], dim=-1)
+    return Q, mm33(Q.transpose(-1, -2), A)

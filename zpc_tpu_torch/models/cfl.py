@@ -1,6 +1,7 @@
-"""Timestep estimation (counterpart of ``zpc_tpu/models/cfl.py:19-28``):
+"""Timestep estimation (counterpart of ``zpc_tpu/models/cfl.py``):
 ``dt = cfl * dx / c`` with the elastic wave speed
-``c = sqrt((lam + 2 mu) / rho)`` in fp32."""
+``c = sqrt((lam + 2 mu) / rho)`` in fp32, and the velocity CFL bound of
+the grid's maximum speed."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import torch
 
 from .constitutive import lame_parameters
 
-__all__ = ["sound_speed", "timestep_linear_elasticity"]
+__all__ = ["sound_speed", "timestep_linear_elasticity", "timestep_velocity"]
 
 
 def sound_speed(E: float, nu: float, rho: float) -> torch.Tensor:
@@ -20,3 +21,10 @@ def sound_speed(E: float, nu: float, rho: float) -> torch.Tensor:
 def timestep_linear_elasticity(E: float, nu: float, rho: float, dx: float,
                                cfl: float = 0.5) -> torch.Tensor:
     return cfl * dx / sound_speed(E, nu, rho)
+
+
+def timestep_velocity(max_vel: torch.Tensor, dx: float, cfl: float = 0.5,
+                      dt_max: float = 1e-3) -> torch.Tensor:
+    """``min(cfl * dx / max_vel, dt_max)`` (``max_vel`` clamped to >=
+    1e-6), on ``max_vel``'s device: no host read."""
+    return torch.clamp_max(cfl * dx / torch.clamp_min(max_vel, 1e-6), dt_max)

@@ -1,11 +1,12 @@
 """Constitutive models (counterpart of ``zpc_tpu/models/constitutive.py``),
-3-D and batched over ``[..., 3, 3]`` deformation gradients.
+batched over ``[..., d, d]`` deformation gradients, d = 2 or 3.
 
 Each model is a frozen dataclass of fp32 scalar (or per-particle) tensors
 with ``psi`` (energy density), ``first_piola`` (P = dpsi/dF) and
 ``kirchhoff`` (tau = P F^T, what the MPM transfer scatters).  The
-SVD-based models use :func:`zpc_tpu_torch.math.svd.svd3x3` in its rotation
-convention (signed smallest singular value for inverted elements).
+SVD-based models use :func:`zpc_tpu_torch.math.svd.svd3x3` (or, in 2-D,
+:func:`~zpc_tpu_torch.math.svd.svd2x2`) in its rotation convention (signed
+smallest singular value for inverted elements).
 ``dP_dF_action`` is the force differential the implicit solver applies:
 ``torch.func.jvp`` of ``first_piola``, so every ``first_piola`` is free of
 in-place writes, host reads and branches on values.  ``linearize(F)``
@@ -20,8 +21,8 @@ from typing import Tuple
 
 import torch
 
-from ..math.svd import _svd3x3_at, polar_newton3x3, svd3x3
-from ..math.vecmat import cof3, det3, mm33
+from ..math.svd import _svd3x3_at, polar_newton3x3, svd2x2, svd3x3
+from ..math.vecmat import cof3, det3, mm
 
 __all__ = ["lame_parameters", "bcast_scalar", "ElasticModel", "NeoHookean",
            "FixedCorotated", "StvkWithHencky", "EquationOfState",
@@ -48,11 +49,16 @@ def bcast_scalar(v: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape + (1,) * extra) if extra > 0 else v
 
 
-def _cof(F: torch.Tensor) -> torch.Tensor:
-    """Cofactor matrix ``J F^-T`` (valid for singular F)."""
-    if F.shape[-2:] != (3, 3):
-        raise NotImplementedError("only the 3-D models are ported")
-    return cof3(F)
+def _svd(F: torch.Tensor):
+    return svd2x2(F) if F.shape[-1] == 2 else svd3x3(F)
+
+
+def _prod(s: torch.Tensor) -> torch.Tensor:
+    """The product of the singular values, written out: torch.prod's
+    forward-mode rule runs a cumprod, ~7 ms over 1.2M lanes on the H100,
+    twice in every implicit operator application."""
+    J = s[..., 0] * s[..., 1]
+    return J * s[..., 2] if s.shape[-1] == 3 else J
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +85,7 @@ class ElasticModel:
 
     def kirchhoff(self, F: torch.Tensor) -> torch.Tensor:
         """tau = P F^T."""
-        return mm33(self.first_piola(F), F.transpose(-1, -2))
+        return mm(self.first_piola(F), F.transpose(-1, -2))
 
     def dP_dF_action(self, F: torch.Tensor, dF: torch.Tensor) -> torch.Tensor:
         """The directional derivative dP(F)[dF], by forward-mode autodiff
@@ -91,9 +97,10 @@ class ElasticModel:
         it, for many dF: the SVD of F is taken here once, and each call
         runs ``torch.func.jvp`` of the stress around it.  The models whose
         stress takes the SVD define ``_piola(F, factors)``, the stress with
-        the factors of this F given."""
+        the factors of this F given; the closed-form 2x2 SVD has nothing to
+        save."""
         piola = getattr(self, "_piola", None)
-        if piola is None:
+        if piola is None or F.shape[-1] == 2:
             return lambda dF: self.dP_dF_action(F, dF)
         factors = svd3x3(F)
         return lambda dF: torch.func.jvp(
@@ -101,26 +108,30 @@ class ElasticModel:
 
 
 def _factors(F, factors):
-    """The SVD of F: ``factors`` when the caller has it, else the sweeps."""
-    return svd3x3(F) if factors is None else _svd3x3_at(F, factors)
+    """The SVD of F: ``factors`` when the caller has it, else the sweeps
+    (the closed form in 2-D)."""
+    if factors is None:
+        return _svd(F)
+    return _svd3x3_at(F, factors)
 
 
 @dataclasses.dataclass(frozen=True)
 class NeoHookean(ElasticModel):
-    """psi = mu/2 (tr(F^T F) - 3) - mu log J + lam/2 log^2 J."""
+    """psi = mu/2 (tr(F^T F) - d) - mu log J + lam/2 log^2 J."""
 
     def psi(self, F):
+        d = F.shape[-1]
         J = det3(F)
         logJ = torch.log(torch.clamp_min(J, 1e-12))
         I1 = torch.sum(F * F, (-2, -1))
         mu = bcast_scalar(self.mu, I1)
         lam = bcast_scalar(self.lam, I1)
-        return 0.5 * mu * (I1 - 3) - mu * logJ + 0.5 * lam * logJ * logJ
+        return 0.5 * mu * (I1 - d) - mu * logJ + 0.5 * lam * logJ * logJ
 
     def first_piola(self, F):
         J = det3(F)
         logJ = torch.log(torch.clamp_min(J, 1e-12))
-        Finv_T = _cof(F) / torch.clamp_min(J, 1e-12)[..., None, None]
+        Finv_T = cof3(F) / torch.clamp_min(J, 1e-12)[..., None, None]
         mu = bcast_scalar(self.mu, F)
         lam = bcast_scalar(self.lam, F)
         return mu * (F - Finv_T) + lam * logJ[..., None, None] * Finv_T
@@ -131,11 +142,12 @@ class FixedCorotated(ElasticModel):
     """psi = mu |F - R|^2 + lam/2 (J - 1)^2; P = 2 mu (F - R) + lam (J - 1)
     cof(F).  ``psi``/``first_piola`` take R from the SVD (inverted elements
     in the rotation convention); ``kirchhoff`` from the Newton polar
-    iteration, as the JAX package's explicit step does."""
+    iteration in 3-D, as the JAX package's explicit step does, and from
+    ``first_piola`` in 2-D."""
 
     def psi(self, F):
-        _, s, _ = svd3x3(F)
-        J = s[..., 0] * s[..., 1] * s[..., 2]
+        _, s, _ = _svd(F)
+        J = _prod(s)
         mu = bcast_scalar(self.mu, J)
         lam = bcast_scalar(self.lam, J)
         return mu * torch.sum((s - 1.0) ** 2, -1) + \
@@ -146,23 +158,23 @@ class FixedCorotated(ElasticModel):
 
     def _piola(self, F, factors):
         U, s, V = _factors(F, factors)
-        R = mm33(U, V.transpose(-1, -2))
-        # the product written out: torch.prod's forward-mode rule runs a
-        # cumprod, ~7 ms over 1.2M lanes on the H100, twice in every
-        # implicit operator application
-        J = s[..., 0] * s[..., 1] * s[..., 2]
+        R = mm(U, V.transpose(-1, -2))
+        J = _prod(s)
         return (2.0 * bcast_scalar(self.mu, F)) * (F - R) + \
-            (bcast_scalar(self.lam, J) * (J - 1.0))[..., None, None] * _cof(F)
+            (bcast_scalar(self.lam, J) * (J - 1.0))[..., None, None] * cof3(F)
 
     def kirchhoff(self, F):
         """tau = P F^T with R from the Newton polar iteration (no SVD: the
-        corotated stress needs only R, J and cof F)."""
+        corotated stress needs only R, J and cof F); in 2-D, P from the
+        closed-form SVD."""
+        if F.shape[-1] == 2:
+            return super().kirchhoff(F)
         R = polar_newton3x3(F)
-        cof = _cof(F)
+        cof = cof3(F)
         J = torch.sum(F[..., :, 0] * cof[..., :, 0], -1)
         P = (2.0 * bcast_scalar(self.mu, F)) * (F - R) + \
             (bcast_scalar(self.lam, J) * (J - 1.0))[..., None, None] * cof
-        return mm33(P, F.transpose(-1, -2))
+        return mm(P, F.transpose(-1, -2))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,7 +183,7 @@ class StvkWithHencky(ElasticModel):
     lam/2 (sum log s)^2 over the principal stretches."""
 
     def psi(self, F):
-        _, s, _ = svd3x3(F)
+        _, s, _ = _svd(F)
         eps = torch.log(torch.clamp_min(s.abs(), 1e-12))
         tr = torch.sum(eps, -1)
         mu = bcast_scalar(self.mu, tr)
@@ -190,7 +202,7 @@ class StvkWithHencky(ElasticModel):
         lam = bcast_scalar(self.lam, eps[..., 0])[..., None]
         dpsi_dsigma = (2.0 * mu * eps +
                        lam * torch.sum(eps, -1, keepdim=True)) / s_safe
-        return mm33(U, dpsi_dsigma[..., :, None] * V.transpose(-1, -2))
+        return mm(U, dpsi_dsigma[..., :, None] * V.transpose(-1, -2))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,7 +235,7 @@ class EquationOfState(ElasticModel):
         return (-self.pressure(J) * J)[..., None, None] * eye
 
     def first_piola(self, F):
-        return (-self.pressure(det3(F)))[..., None, None] * _cof(F)
+        return (-self.pressure(det3(F)))[..., None, None] * cof3(F)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,7 +256,7 @@ class AnisotropicArap(ElasticModel):
         return torch.einsum("...ij,...j->...i", F, a), a
 
     def psi(self, F):
-        _, s, _ = svd3x3(F)
+        _, s, _ = _svd(F)
         mu = bcast_scalar(self.mu, s[..., 0])
         arap = mu * torch.sum((s - 1.0) ** 2, -1)
         Fa, _ = self._fa(F)
@@ -257,7 +269,7 @@ class AnisotropicArap(ElasticModel):
 
     def _piola(self, F, factors):
         U, s, V = _factors(F, factors)
-        R = mm33(U, V.transpose(-1, -2))
+        R = mm(U, V.transpose(-1, -2))
         P = 2.0 * bcast_scalar(self.mu, F) * (F - R)
         Fa, a = self._fa(F)
         ell = torch.clamp_min(torch.linalg.vector_norm(Fa, dim=-1,

@@ -11,15 +11,18 @@ broad-phase scene of ``benchmarks/run_all.py:bench_bvh``,
 of ``bench_implicit``, :func:`terrain_mesh` its mesh-contact heightfield
 (``benchmarks/run_all.py:_terrain_mesh``), :func:`floor_mesh` the
 two-triangle floor of ``tests/test_contact_implicit.py`` and
-:func:`contact_block` the two together, and :func:`poisson_rhs` with
-:func:`laplace` the CG Poisson problem of ``bench_poisson``.  Every scene
-is built on the caller's device.
+:func:`contact_block` the two together, :func:`poisson_rhs` with
+:func:`laplace` the CG Poisson problem of ``bench_poisson``,
+:func:`readme_scene` the README's Quick start through
+:class:`~zpc_tpu_torch.sim.scene.Scene`, and :func:`discs_2d` with
+:func:`discs_2d_config` the two falling discs of ``examples/mpm2d.py``.
+Every scene is built on the caller's device.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,11 +37,12 @@ from .sim.contact_implicit import MeshContact
 from .sim.fluid import make_fluid_state
 from .sim.mpm import MPMSim, MPMState, make_mpm_state
 from .sim.mpm_binned2 import K, BinnedConfig2
+from .sim.scene import Scene
 
 __all__ = ["mpm_block", "dam_break", "dam_break_config", "materials",
            "MATERIALS", "lbvh_boxes", "implicit_block", "implicit_config",
            "terrain_mesh", "floor_mesh", "contact_block", "poisson_rhs",
-           "laplace"]
+           "laplace", "readme_scene", "discs_2d", "discs_2d_config"]
 
 MATERIALS = ("jello", "snow", "sand", "fluid")
 
@@ -260,3 +264,53 @@ def laplace(u: torch.Tensor) -> torch.Tensor:
         out[tuple(lo)] -= u[tuple(hi)]
         out[tuple(hi)] -= u[tuple(lo)]
     return out
+
+
+def readme_scene(dx: float, device: torch.device, sphere: bool = False
+                 ) -> Tuple[MPMSim, MPMState, float]:
+    """The README's Quick start: a cube of side 0.25 at (0.5, 0.6, 0.5) with
+    E = 5e4 (the lattice of 8 ppc: 262,144 particles at dx = 1/128) over a
+    sticky ground at y = 0.05, built by :class:`Scene` with
+    ``block_capacity=4096``; ``sphere`` adds a ball of radius 0.1 at (0.5,
+    0.3, 0.5) below it (level-set seeding).  Returns ``(sim, state,
+    dt)``."""
+    ground = Collider(HalfSpace(_f32([0.0, 0.05, 0.0], device),
+                                _f32([0.0, 1.0, 0.0], device)),
+                      ColliderType.sticky)
+    scene = Scene(dx=dx, device=device).add_cube([0.5, 0.6, 0.5], 0.25,
+                                                 E=5e4)
+    if sphere:
+        scene.add_sphere([0.5, 0.3, 0.5], 0.1)
+    return scene.add_boundary(ground).build(block_capacity=4096)
+
+
+def discs_2d(draws: int, dx: float, device: torch.device,
+             block_capacity: int = 2048) -> Tuple[MPMSim, MPMState]:
+    """``examples/mpm2d.py``'s scene: ``default_rng(3)``, ``draws // 2``
+    uniform draws in [-0.1, 0.1]^2 per disc, the ones inside radius 0.1
+    kept around (0.35, 0.6) and (0.65, 0.75); FixedCorotated E 5e4, nu
+    0.3; a slip ground at y = 0.1 with friction 0.2.  The example runs
+    8,192 draws at dx = 1/128 and dt = 1e-4."""
+    rng = np.random.default_rng(3)
+    pts = []
+    for c in ([0.35, 0.6], [0.65, 0.75]):
+        p = rng.uniform(-0.1, 0.1, (draws // 2, 2))
+        pts.append(p[np.linalg.norm(p, axis=1) < 0.1] + c)
+    x = np.concatenate(pts).astype(np.float32)
+    ground = Collider(HalfSpace(_f32([0.0, 0.1], device),
+                                _f32([0.0, 1.0], device)),
+                      ColliderType.slip, friction=0.2)
+    sim = MPMSim(model=FixedCorotated.from_young_poisson(5e4, 0.3,
+                                                         device=device),
+                 gravity=_f32([0.0, -9.8], device), colliders=(ground,))
+    st = make_mpm_state(x, dx=dx, device=device,
+                        block_capacity=block_capacity)
+    return sim, st
+
+
+def discs_2d_config(capacity: int, block_capacity: Optional[int] = None
+                    ) -> BinnedConfig2:
+    """The example's bins, ``max(256, capacity // 128 * 4)``: a 4^2 block
+    at 4 ppc fills half a bin."""
+    return BinnedConfig2(bins_capacity=max(256, capacity // K * 4),
+                         block_capacity=block_capacity)

@@ -6,7 +6,7 @@ depends only on the volume ratio J, so particles carry a scalar J in place
 of F, and the stress enters the APIC affine matrix as one scalar on its
 diagonal.  J evolves as ``J' = J (1 + dt tr(C'))``, the trace of the
 affine velocity gradient being the discrete divergence.  The transfers
-are those of :func:`zpc_tpu_torch.sim.mpm.explicit_step` (3-D).
+are those of :func:`zpc_tpu_torch.sim.mpm.explicit_step` (2-D or 3-D).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from ..core.config import prop
 from ..geometry.collider import resolve_boundaries
 from ..geometry.sparse_grid import sparse_grid
 from ..models.constitutive import EquationOfState
-from .mpm import MPMSim, MPMState, _flip_blend, _stencil
+from .mpm import MPMSim, MPMState, _apic_dinv, _flip_blend, _stencil
 
 __all__ = ["make_fluid_state", "explicit_fluid_step"]
 
@@ -30,7 +30,7 @@ def make_fluid_state(x, *, dx: float, device: torch.device, rho: float = 1e3,
                      velocity=None, capacity: Optional[int] = None,
                      origin=None) -> MPMState:
     """Particle state (x, v, J = 1, C = 0, m, vol) from positions
-    ``x [n, 3]`` (numpy or tensor) and an empty m/v grid."""
+    ``x [n, dim]`` (numpy or tensor) and an empty m/v grid."""
     x = torch.as_tensor(x, dtype=torch.float32, device=device)
     n, dim = x.shape
     vol0 = dx ** dim / ppc
@@ -63,8 +63,7 @@ def explicit_fluid_step(sim: MPMSim, state: MPMState, dt,
         raise TypeError("the fluid pipeline needs an EquationOfState model")
     p = state.particles
     grid = state.grid
-    if grid.dim != 3:
-        raise NotImplementedError("only the 3-D step is ported")
+    dim = grid.dim
     ncell = grid.cells_per_block
     cap_cells = grid.block_capacity * ncell
     dx = grid.dx
@@ -78,11 +77,11 @@ def explicit_fluid_step(sim: MPMSim, state: MPMState, dt,
     # tau = -p(J) J I is diagonal: the stress shifts A's diagonal by one
     # scalar per particle.  Masked lanes carry J = 0 and pressure(0) is
     # inf, so they take J = 1 (0 * inf would be NaN)
-    Dinv = 4.0 / (dx * dx)
+    Dinv = _apic_dinv(sim.order, dx)
     J = torch.where(pmask, p["J"], 1.0)
     tau_s = -sim.model.pressure(J) * J
     stress_s = -dt * Dinv * torch.where(pmask, p["vol"], 0.0) * tau_s
-    eye = torch.eye(3, dtype=torch.float32, device=m.device)
+    eye = torch.eye(dim, dtype=torch.float32, device=m.device)
     A = m[:, None, None] * p["C"] + stress_s[:, None, None] * eye
     xdiff = (cells.to(xi.dtype) - xi[:, None, :]) * dx
     Ax = torch.bmm(xdiff, A.transpose(1, 2))
@@ -90,9 +89,9 @@ def explicit_fluid_step(sim: MPMSim, state: MPMState, dt,
     slot = grid.cell_slot(cells)
     slot = torch.where(slot >= 0, slot, cap_cells).long()
     payload = torch.cat([(w3 * m[:, None])[..., None], mom], -1)
-    acc = torch.zeros((cap_cells + 1, 4), dtype=payload.dtype,
+    acc = torch.zeros((cap_cells + 1, 1 + dim), dtype=payload.dtype,
                       device=payload.device)
-    acc.index_add_(0, slot.reshape(-1), payload.reshape(-1, 4))
+    acc.index_add_(0, slot.reshape(-1), payload.reshape(-1, 1 + dim))
     gm = acc[:cap_cells, 0]
     gmv = acc[:cap_cells, 1:]
 
@@ -100,12 +99,12 @@ def explicit_fluid_step(sim: MPMSim, state: MPMState, dt,
     gv0 = torch.where(has_mass[:, None],
                       gmv / gm.clamp_min(1e-30)[:, None], 0.0)
     gv = gv0 + dt * sim.gravity[None, :]
-    node_x = grid.node_world_positions().reshape(cap_cells, 3)
+    node_x = grid.node_world_positions().reshape(cap_cells, dim)
     gv = resolve_boundaries(sim.colliders, node_x, gv)
     gv = torch.where(has_mass[:, None], gv, 0.0)
     max_vel = torch.sqrt(torch.max(torch.sum(gv * gv, -1)))
     grid = grid.with_data(m=gm.reshape(grid.block_capacity, ncell),
-                          v=gv.reshape(grid.block_capacity, ncell, 3))
+                          v=gv.reshape(grid.block_capacity, ncell, dim))
 
     wv = w3[..., None] * torch.cat([gv, torch.zeros_like(gv[:1])])[slot]
     v_new = wv.sum(1)

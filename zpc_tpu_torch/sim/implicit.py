@@ -1,6 +1,6 @@
 """Implicit MPM: the matrix-free backward-Euler grid solve with PCG
-(counterpart of ``zpc_tpu/sim/implicit.py``), 3-D, on the unbinned scatter
-path of :mod:`zpc_tpu_torch.sim.mpm`.  It is the readable oracle of the
+(counterpart of ``zpc_tpu/sim/implicit.py``), 2-D or 3-D, on the unbinned
+scatter path of :mod:`zpc_tpu_torch.sim.mpm`.  It is the readable oracle of the
 binned implicit step (:mod:`zpc_tpu_torch.sim.implicit_binned2`).
 
 System solved (mass-PSD form, one linearised solve per step):
@@ -10,6 +10,9 @@ collider changes and mass-Jacobi preconditioning.  The operator is one
 gather -> dP/dF -> scatter round over the step's stencil arrays; dP(F)[dF]
 is ``torch.func.jvp`` of the model's ``first_piola``, linearised once per
 step (:meth:`~zpc_tpu_torch.models.constitutive.ElasticModel.linearize`).
+In 2-D the SVD-based stresses take the closed-form
+:func:`~zpc_tpu_torch.math.svd.svd2x2`, whose derivative is finite at
+F = I (JAX's is NaN there, so its 2-D step from rest is NaN).
 """
 
 from __future__ import annotations
@@ -18,8 +21,8 @@ import torch
 
 from ..geometry.collider import resolve_boundaries
 from ..math.solvers import cg
-from ..math.svd import svd3x3
-from ..math.vecmat import mm33
+from ..math.svd import svd2x2, svd3x3
+from ..math.vecmat import mm
 from .mpm import MPMSim, MPMState, _stencil
 
 __all__ = ["implicit_step"]
@@ -40,8 +43,6 @@ def implicit_step(sim: MPMSim, state: MPMState, dt, cg_iters: int = 50,
     p = state.particles
     grid = state.grid
     dim, bs = grid.dim, grid.block_size
-    if dim != 3:
-        raise NotImplementedError("only the 3-D step is ported")
     ncell = grid.cells_per_block
     cap_cells = grid.block_capacity * ncell
     dx = grid.dx
@@ -57,7 +58,7 @@ def implicit_step(sim: MPMSim, state: MPMState, dt, cg_iters: int = 50,
     slot = grid.cell_slot(cells)
     slot = torch.where(slot >= 0, slot, cap_cells).long()    # trash slot
     flat = slot.reshape(-1)
-    xdiff = (cells.to(xi.dtype) - xi[:, None, :]) * dx       # [N, 27, 3]
+    xdiff = (cells.to(xi.dtype) - xi[:, None, :]) * dx     # [N, S^d, d]
     F = p["F"]
 
     def scatter(vals):
@@ -68,10 +69,10 @@ def implicit_step(sim: MPMSim, state: MPMState, dt, cg_iters: int = 50,
         return acc[:cap_cells]
 
     def gather(g):
-        return torch.cat([g, torch.zeros_like(g[:1])])[slot]  # [N, 27, 3]
+        return torch.cat([g, torch.zeros_like(g[:1])])[slot]  # [N, S^d, d]
 
     def affine(M):
-        """M (x_i - x_p) at every stencil node: [N, 27, 3]."""
+        """M (x_i - x_p) at every stencil node: [N, S^d, d]."""
         return torch.bmm(xdiff, M.transpose(1, 2))
 
     def velocity_gradient(u):
@@ -106,8 +107,8 @@ def implicit_step(sim: MPMSim, state: MPMState, dt, cg_iters: int = 50,
         return torch.where(free[:, None], u, 0.0)
 
     if hessian_clamp > 0.0:
-        U, S, V = svd3x3(F)
-        F_h = mm33(U * S.clamp_min(hessian_clamp)[..., None, :],
+        U, S, V = (svd3x3 if dim == 3 else svd2x2)(F)
+        F_h = mm(U * S.clamp_min(hessian_clamp)[..., None, :],
                    V.transpose(-1, -2))
     else:
         F_h = F
@@ -117,8 +118,8 @@ def implicit_step(sim: MPMSim, state: MPMState, dt, cg_iters: int = 50,
     # A u = M u + dt^2 K u: one dt in dF (the position change dt u), one in
     # the force integral
     def A(u):
-        dF = dt * mm33(velocity_gradient(u), F_h)
-        dtau = mm33(dP_dF(dF), F_hT)
+        dF = dt * mm(velocity_gradient(u), F_h)
+        dtau = mm(dP_dF(dF), F_hT)
         Ku = scatter(w3[..., None] * Dinv * vol[:, None, None] * dt *
                      affine(dtau))
         return gm[:, None] * u + Ku
@@ -137,7 +138,7 @@ def implicit_step(sim: MPMSim, state: MPMState, dt, cg_iters: int = 50,
         v_mom = torch.where(has_mass[:, None], v_mom, 0.0)
 
         def residual(v):
-            Fv = mm33(eye + dt * velocity_gradient(v), F)
+            Fv = mm(eye + dt * velocity_gradient(v), F)
             fv = internal_force(sim.model.kirchhoff(Fv))
             return project(gm[:, None] * v - gm[:, None] * v_mom - dt * fv)
 
@@ -168,7 +169,7 @@ def implicit_step(sim: MPMSim, state: MPMState, dt, cg_iters: int = 50,
     v_new = (w3[..., None] * gather(gv)).sum(1)
     C_new = velocity_gradient(gv)
     eye = torch.eye(dim, dtype=F.dtype, device=F.device)
-    F_new = mm33(eye + dt * C_new, F)
+    F_new = mm(eye + dt * C_new, F)
     upd = {}
     if sim.plasticity is not None and p.has_prop("Jp"):
         F_new, Jp_new = sim.plasticity.project(F_new, p["Jp"])

@@ -44,9 +44,10 @@ from ..math.solvers import cg
 from ..math.vecmat import mm33
 from .mpm import MPMSim, MPMState
 from .mpm_binned2 import (K, BinnedConfig2, BinState, _advance, _ctx_g2p,
-                          _ctx_p2g_affine, _ctx_p2g_squared, _lanes,
-                          _make_ctx, _node_positions, _rebin, adaptive_chain,
-                          bin_state, rebin_adaptive, unbin_state)
+                          _ctx_p2g_affine, _ctx_p2g_squared, _lane_model,
+                          _lanes, _make_ctx, _node_positions, _rebin,
+                          adaptive_chain, bin_state, rebin_adaptive,
+                          unbin_state)
 
 __all__ = ["implicit_step_binned2", "implicit_rollout_binned2"]
 
@@ -84,7 +85,8 @@ def _implicit_bin_step(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
                                    lane_alive).view(L)
 
     # right-hand side: mass, APIC momentum and internal force in one P2G
-    tau = sim.model.kirchhoff(Fb)
+    model = _lane_model(sim.model, st.pid)
+    tau = model.kirchhoff(Fb)
     A_m = m[:, None, None] * Cb
     A_f = (-dinv * vol)[:, None, None] * tau
     Q0 = torch.cat([m[:, None], m[:, None] * vb, fc], -1)
@@ -107,7 +109,7 @@ def _implicit_bin_step(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
     # (M + dt^2 K [+ dt^2 K_c]) u over [nb, 64, 3]
     FbT = Fb.transpose(-1, -2)
     kscale = (dt * dinv * vol)[:, None, None]
-    dP_dF = sim.model.linearize(Fb)
+    dP_dF = model.linearize(Fb)
 
     def A_op(u):
         s0, dC = _ctx_g2p(ctx, u)

@@ -1,10 +1,11 @@
 """Explicit APIC MPM on a block-sparse grid (counterpart of
 ``zpc_tpu/sim/mpm.py``): the port's readable oracle.
 
-One step: activate the blocks the quadratic stencils touch (+1 block
-dilation), scatter mass and APIC momentum with the fused stress term into
-the flat cell array by ``index_add_`` (with a trash slot for misses), update
-grid velocities under gravity and colliders, gather back for G2P, advect.
+One step, in 2-D or 3-D: activate the blocks the B-spline stencils touch
+(+1 block dilation), scatter mass and APIC momentum with the fused stress
+term into the flat cell array by ``index_add_`` (with a trash slot for
+misses), update grid velocities under gravity and colliders, gather back
+for G2P, advect.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from ..core.config import prop
 from ..geometry.collider import Collider, resolve_boundaries
 from ..geometry.sparse_grid import SparseGrid, neighbor_offsets, sparse_grid
 from ..math.interpolation import bspline_weights, stencil_size
-from ..math.vecmat import mm33
+from ..math.vecmat import mm
 from ..models.constitutive import ElasticModel
 
 __all__ = ["MPMSim", "MPMState", "make_mpm_state", "explicit_step"]
@@ -27,10 +28,11 @@ __all__ = ["MPMSim", "MPMState", "make_mpm_state", "explicit_step"]
 
 @dataclasses.dataclass(frozen=True)
 class MPMSim:
-    """Physical configuration: the elastic model, gravity ``[3]``, the
+    """Physical configuration: the elastic model, gravity ``[dim]``, the
     boundary colliders, an optional plasticity model (projected when the
-    state carries ``Jp``) and the FLIP blend (0: pure APIC).  Quadratic
-    B-splines only (``order`` 2)."""
+    state carries ``Jp``), the B-spline ``order`` (2 or 3 for the APIC
+    transfer; the binned path takes 2) and the FLIP blend (0: pure
+    APIC)."""
 
     model: ElasticModel
     gravity: torch.Tensor
@@ -52,9 +54,10 @@ def make_mpm_state(x, *, dx: float, device: torch.device, rho: float = 1e3,
                    velocity=None, capacity: Optional[int] = None,
                    with_Jp: bool = False, Jp0: float = 0.0,
                    origin=None) -> MPMState:
-    """Particle and empty-grid state from positions ``x [n, 3]`` (numpy or
-    tensor): F = I, C = 0, m = rho * dx^3 / ppc, vol = dx^3 / ppc, and
-    ``Jp = Jp0`` with ``with_Jp`` (the plastic state)."""
+    """Particle and empty-grid state from positions ``x [n, dim]`` (numpy
+    or tensor, dim 2 or 3): F = I, C = 0, m = rho * dx^dim / ppc, vol =
+    dx^dim / ppc, and ``Jp = Jp0`` with ``with_Jp`` (the plastic
+    state)."""
     x = torch.as_tensor(x, dtype=torch.float32, device=device)
     n, dim = x.shape
     cap = capacity or n
@@ -84,8 +87,8 @@ def make_mpm_state(x, *, dx: float, device: torch.device, rho: float = 1e3,
 
 
 def _stencil(sim: MPMSim, grid: SparseGrid, x: torch.Tensor):
-    """Per-particle stencil: (cells [N,27,3], w3 [N,27], base [N,3],
-    xi [N,3])."""
+    """Per-particle stencil: (cells [N, S^dim, dim], w3 [N, S^dim], base
+    [N, dim], xi [N, dim]) for the stencil width S of ``sim.order``."""
     S = stencil_size(sim.order)
     xi = grid.world_to_index(x)
     base, w, _ = bspline_weights(xi, sim.order)       # [N,3], [N,3,S]
@@ -99,13 +102,24 @@ def _stencil(sim: MPMSim, grid: SparseGrid, x: torch.Tensor):
     return cells, w3, base, xi
 
 
+def _apic_dinv(order: int, dx):
+    """The APIC inertia tensor's inverse D^-1 (a multiple of I): 4/dx^2 for
+    quadratic and 3/dx^2 for cubic B-splines.  Linear B-splines have a
+    D that varies with the position, which the affine transfer does not
+    take."""
+    if order == 2:
+        return 4.0 / (dx * dx)
+    if order == 3:
+        return 3.0 / (dx * dx)
+    raise NotImplementedError(
+        f"APIC affine transfer needs order 2 or 3 B-splines, got {order}")
+
+
 def explicit_step(sim: MPMSim, state: MPMState, dt) -> MPMState:
-    """One explicit symplectic-Euler APIC step (3-D)."""
+    """One explicit symplectic-Euler APIC step (2-D or 3-D)."""
     p = state.particles
     grid = state.grid
     dim, bs = grid.dim, grid.block_size
-    if dim != 3:
-        raise NotImplementedError("only the 3-D step is ported")
     ncell = grid.cells_per_block
     cap_cells = grid.block_capacity * ncell
     dx = grid.dx
@@ -117,13 +131,13 @@ def explicit_step(sim: MPMSim, state: MPMState, dt) -> MPMState:
     pblock = torch.div(base, bs, rounding_mode="floor")
     grid = grid.activate(pblock, valid=pmask, dilation=1)
 
-    # 2. P2G: A = m C - dt (4/dx^2) vol tau, scattered with w (m v + A dx_ip)
-    Dinv = 4.0 / (dx * dx)
+    # 2. P2G: A = m C - dt D^-1 vol tau, scattered with w (m v + A dx_ip)
+    Dinv = _apic_dinv(sim.order, dx)
     F = p["F"]
     tau = sim.model.kirchhoff(F)
     vol = torch.where(pmask, p["vol"], 0.0)
     A = m[:, None, None] * p["C"] - (dt * Dinv * vol)[:, None, None] * tau
-    xdiff = (cells.to(xi.dtype) - xi[:, None, :]) * dx       # [N,27,3]
+    xdiff = (cells.to(xi.dtype) - xi[:, None, :]) * dx     # [N, S^d, d]
     Ax = torch.bmm(xdiff, A.transpose(1, 2))
     mom = w3[..., None] * (m[:, None, None] * p["v"][:, None, :] + Ax)
     slot = grid.cell_slot(cells)                             # -1 on miss
@@ -148,7 +162,7 @@ def explicit_step(sim: MPMSim, state: MPMState, dt) -> MPMState:
                           v=gv.reshape(grid.block_capacity, ncell, dim))
 
     # 4. G2P + advect
-    vnode = torch.cat([gv, torch.zeros_like(gv[:1])])[slot]   # [N,27,3]
+    vnode = torch.cat([gv, torch.zeros_like(gv[:1])])[slot]   # [N,S^d,d]
     wv = w3[..., None] * vnode
     v_new = wv.sum(1)
     Bm = torch.bmm(wv.transpose(1, 2), xdiff)
@@ -156,7 +170,7 @@ def explicit_step(sim: MPMSim, state: MPMState, dt) -> MPMState:
     if sim.flip > 0.0:
         v_new = _flip_blend(sim.flip, p["v"], v_new, w3, gv - gv0, slot)
     eye = torch.eye(dim, dtype=F.dtype, device=F.device)
-    F_new = mm33(eye + dt * C_new, F)
+    F_new = mm(eye + dt * C_new, F)
     updates = {}
     if sim.plasticity is not None and p.has_prop("Jp"):
         F_new, Jp_new = sim.plasticity.project(F_new, p["Jp"])
