@@ -2,14 +2,16 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Seven paths run at full width: the explicit-MPM elastic block, the LBVH
+Nine paths run at full width: the explicit-MPM elastic block, the LBVH
 broad phase, the weakly compressible dam break, the implicit-MPM block
 (BASELINE config 5 without contact), the same block over a mesh with IPC
 contact (config 5 as specified, over a two-triangle floor and over the
 bench's two heightfields), the README's Quick start through ``Scene`` and
-``simulate`` with bgeo frames and checkpoints, and examples/mpm2d.py's
-discs in 2-D at a user's scale; the four materials of
-examples/materials.py run at their own size, the CG Poisson solve of
+``simulate`` with bgeo frames and checkpoints, examples/mpm2d.py's
+discs in 2-D at a user's scale, the bench's two-layer self-contact cloth
+at 8,192 and 131,072 vertices and a 33^3 tet FEM block; the four
+materials of examples/materials.py run at their own size, the CG Poisson
+solve of
 BASELINE config 2 at its bench size, the parallel primitives of BASELINE
 config 1 through the top-level API at 1M and 16M elements, and the
 containers, sparse grid, CSR and graph algorithms built on them at the
@@ -154,7 +156,7 @@ caught):
    near step 2,860, so the 2-D rebin runs), card against CPU as phase 22;
 24. the same discs at a user's scale: 327,680 draws (257,635 particles)
    at dx = 1/1024, dt 5e-5, ``block_capacity`` 8,192 and the example's
-   bins, one 7,000-step chain (impact near step 5,700), ms/step and
+   bins, one 6,000-step chain (impact near step 5,700), ms/step and
    particle-steps/s; gated: rebins, no overflow, mass, finite columns, no
    particle below y = 0.1 - dx - 1e-3, every scan replayed;
 25. the rest of the family at its JAX tests' sizes, card against CPU: the
@@ -171,10 +173,34 @@ caught):
    equal to the CPU port's (pid, bin_block, columns exact), the chain
    with migrations within the tolerances (plus twice the spread between
    the other two) of the one with full rebins, ms per migration beside
-   ms per full rebin.
+   ms per full rebin;
+27. the hinge and tight-CCD kernels card against CPU: angle and gradient
+   of 1,048,576 seeded hinges, the Hessians of 65,536 of them (within
+   2e-6, and 1e-5 of the largest entry), and 65,536 vertex-face and
+   65,536 edge-edge tight-CCD queries (toi, overflowed and iterations
+   equal), with their times;
+28. examples/cloth_drape.py at its defaults (24 x 24, 40 frames x 4
+   substeps of dt 0.008), pinned and free: ms per frame; gated: the
+   pinned corners fixed to 1e-6, no vertex below the ground in any step,
+   the first 8 steps card against CPU (rtol 3e-4, atol 5e-6);
+29. the bench's two-layer cloth (benchmarks/run_all.py bench_cloth) at
+   8,192 vertices: 40 window steps to settle, then chains of 10 window
+   and 10 dense steps, best of 3: ms/step and M vert-steps/s, CG
+   iterations per Newton round; gated: the candidate set after settling
+   not overflowed (certified), the window residue within its budget (the
+   bench's 1,024 overflows: ROADMAP §3), no timed step flagged, every
+   inner vertex of layer B above layer A, 3 steps card against CPU;
+30. the same at 131,072 vertices (bench_cloth_128k): 20 window steps,
+   then 5 timed, one step card against CPU;
+31. tet FEM: the hanging NeoHookean block of tests/test_fem.py at 33^3
+   vertices (163,840 tets), 40 steps: ms/step; gated: the pinned row
+   fixed, the block sags and settles; tests/test_fem.py's drop above the
+   ground; the 3 x 5 x 3 box, NeoHookean and FixedCorotated, 5 steps
+   card against CPU.
 
 The scan's launches in the kernel record are those of phases 4, 10, 12,
-13, 16, 19, 20, 21, 24 and 26 (a line before gives them per path).  The
+13, 16, 19, 20, 21, 24 and 26 (a line before gives them per path, with
+phases 27-31's, which launch neither kernel).  The
 last two lines are the kernel record and the contract line
 ``{"ok": true, "device": {...}}``.
 """
@@ -205,15 +231,19 @@ from zpc_tpu_torch import _kernels, scenes  # noqa: E402
 from zpc_tpu_torch.containers import bvh as bvh_mod  # noqa: E402
 from zpc_tpu_torch.ops import nse as nse_op  # noqa: E402
 from zpc_tpu_torch.ops import scan as scan_op  # noqa: E402
+from zpc_tpu_torch.geometry import ccd_tight, dihedral  # noqa: E402
 from zpc_tpu_torch.geometry import levelset  # noqa: E402
 from zpc_tpu_torch.geometry.collider import (Collider,  # noqa: E402
                                              ColliderType)
 from zpc_tpu_torch.math import solvers  # noqa: E402
 from zpc_tpu_torch.models import cfl as fl_cfl  # noqa: E402
 from zpc_tpu_torch.models import constitutive  # noqa: E402
-from zpc_tpu_torch.models.constitutive import FixedCorotated  # noqa: E402
+from zpc_tpu_torch.models.constitutive import (  # noqa: E402
+    FixedCorotated, NeoHookean)
 from zpc_tpu_torch.parallel import primitives  # noqa: E402
+from zpc_tpu_torch.sim import cloth  # noqa: E402
 from zpc_tpu_torch.sim import contact_implicit as ci  # noqa: E402
+from zpc_tpu_torch.sim import fem  # noqa: E402
 from zpc_tpu_torch.sim import fluid as fl  # noqa: E402
 from zpc_tpu_torch.sim import fluid_binned2 as fb  # noqa: E402
 from zpc_tpu_torch.sim import implicit as imp  # noqa: E402
@@ -285,12 +315,29 @@ DX_SMALL_README, SMALL_README_STEPS = 1.0 / 32, 240
 # draws at dx = 1/1024, dt = 5e-5 under the CFL dt of 5.95e-5; impact
 # near step 5,700)
 N_DISCS, DT_DISCS, DISCS_UNBINNED, DISCS_BINNED = 8192, 1e-4, 200, 3000
-N_DISCS_BIG, DT_DISCS_BIG, DISCS_BIG_STEPS = 327_680, 5e-5, 7000
+N_DISCS_BIG, DT_DISCS_BIG, DISCS_BIG_STEPS = 327_680, 5e-5, 6000
 # the paddle scene of phase 25; the incremental rebin's chain and bins
 # (3,072, benchmarks/probe_fluid_cost.py's, cannot hold the README scene's
 # reserve bins)
 REST_PADDLE_STEPS = 200
 REBIN_STEPS, REBIN_BINS = 1000, 4096
+# the hinge and tight-CCD batches of phase 27 (the distributions of
+# tests/test_dihedral.py and tests/test_ccd_tight.py); the drape of
+# examples/cloth_drape.py (its defaults); the bench's two-layer cloth
+# (benchmarks/run_all.py bench_cloth and bench_cloth_128k); the hanging
+# NeoHookean block of tests/test_fem.py at 33^3 vertices
+N_HINGES, N_HESS, N_CCD = 1_048_576, 65_536, 65_536
+DRAPE_NX, DRAPE_FRAMES, DRAPE_SUBSTEPS, DRAPE_DT, DRAPE_CMP = 24, 40, 4, \
+    0.008, 8
+CLOTH_DT, CLOTH_NEWTON, CLOTH_CG, CLOTH_MC = 0.005, 2, 24, 32
+# the bench's window budgets (1,024 and 8,192) overflow once the layers
+# touch (ROADMAP §3): the rows run with budgets that hold the residue
+CLOTH_8K = dict(nx=64, bench_residue=1024, residue=65_536, settle=40,
+                chain=10, reps=3, cpu=3)
+CLOTH_128K = dict(nx=256, bench_residue=8192, residue=1 << 20, settle=20,
+                  chain=5, reps=1, cpu=1)
+TOL_CLOTH = dict(rtol=3e-4, atol=5e-6)    # tests/test_cloth.py:490
+N_FEM, FEM_STEPS, FEM_DT, FEM_CMP = 33, 40, 0.01, 5
 HBM_BYTES_PER_MS = 3.35e12 / 1e3     # H100 SXM HBM3 rate (data sheet)
 _WINDOW = "timed calls"               # the profiler window of device_split
 
@@ -2737,6 +2784,311 @@ def incremental_rebin(sim, st, dt, card):
                       "full_rebin_ms": full_ms}
 
 
+def _hinge_batch(n, seed):
+    """tests/test_dihedral.py's hinges: v0 standard normal, the others v0
+    plus standard normals, float32 on the CPU."""
+    rng = np.random.default_rng(seed)
+    v0 = rng.standard_normal((n, 3))
+    v1, v2, v3 = (v0 + rng.standard_normal((n, 3)) for _ in range(3))
+    return [torch.from_numpy(a.astype(np.float32)) for a in (v2, v0, v1, v3)]
+
+
+def _close_rel(g, c, rel, what):
+    """The card's ``g`` within ``rel`` of the CPU's largest entry."""
+    err = (g.cpu() - c).abs().max().item()
+    scale = c.abs().max().item()
+    check(err <= rel * scale, f"{what}: max abs diff {err:.3g} <= {rel} x "
+                              f"the largest entry {scale:.3g}")
+
+
+def _ccd_batch():
+    rng = np.random.default_rng(4)
+    return [torch.from_numpy(rng.uniform(-1, 1, (N_CCD, 3)).astype(
+        np.float32)) for _ in range(8)]
+
+
+_CCD_FNS = ("vertex_face_ccd", "edge_edge_ccd_tight")
+
+
+def geometry_cpu_reference():
+    """Phase 27's CPU side on the same seeded inputs, in a worker process
+    that runs beside phases 22-23 (whose own worker holds their CPU
+    reference): the hinges' angle, gradient and Hessians, and both CCD
+    batches as (toi, overflowed, iterations, seconds)."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    h = _hinge_batch(N_HINGES, 9)
+    out = {"angle": dihedral.dihedral_angle(*h),
+           "gradient": dihedral.dihedral_angle_gradient(*h),
+           "hessian": dihedral.dihedral_angle_hessian(
+               *(a[:N_HESS] for a in h))}
+    q = _ccd_batch()
+    for name in _CCD_FNS:
+        t0 = time.perf_counter()
+        r = getattr(ccd_tight, name)(*q)
+        out[name] = (r.toi, r.overflowed, r.iters, time.perf_counter() - t0)
+    return out
+
+
+def geometry_path(dev, card, cpu_ref):
+    phase("27 dihedral and tight CCD, card against CPU, same port")
+    ref = cpu_ref.result()
+    hg = [a.to(dev) for a in _hinge_batch(N_HINGES, 9)]
+    ms = cuda_ms(lambda: (dihedral.dihedral_angle(*hg),
+                          dihedral.dihedral_angle_gradient(*hg)), 5, 1)
+    ang_g = dihedral.dihedral_angle(*hg)
+    grad_g = dihedral.dihedral_angle_gradient(*hg)
+    print(f"  {N_HINGES} hinges: angle and gradient {ms:.3f} ms on the card "
+          f"({card})", flush=True)
+    err = (ang_g.cpu() - ref["angle"]).abs().max().item()
+    check(err <= 2e-6, f"angle: max abs diff {err:.3g} <= 2e-6")
+    _close_rel(grad_g, ref["gradient"], 1e-5, "gradient")
+    sub = [a[:N_HESS] for a in hg]
+    ms = cuda_ms(lambda: dihedral.dihedral_angle_hessian(*sub), 3, 1)
+    hess_g = dihedral.dihedral_angle_hessian(*sub)
+    print(f"  {N_HESS} hinges: 12x12 Hessians {ms:.3f} ms on the card",
+          flush=True)
+    _close_rel(hess_g, ref["hessian"], 1e-5, "Hessian")
+
+    qg = [a.to(dev) for a in _ccd_batch()]
+    for name in _CCD_FNS:
+        r_g, sec = _event_seconds(lambda: getattr(ccd_tight, name)(*qg))
+        toi_c, ovf_c, iters_c, cpu_s = ref[name]
+        print(f"  {name}: {N_CCD} queries, {r_g.iters} iterations, "
+              f"{sec * 1e3:.3f} ms on the card ({iters_c} iterations, "
+              f"{cpu_s:.1f} s on the CPU), {int(r_g.hit.sum())} hits, "
+              f"{int(r_g.overflowed.sum())} overflowed", flush=True)
+        _same(r_g.toi, toi_c, f"{name} toi")
+        _same(r_g.overflowed, ovf_c, f"{name} overflowed")
+        check(r_g.iters == iters_c, f"{name}: toi and overflowed equal the "
+                                    f"CPU port's, iterations equal")
+
+
+def _drape_run(where, pin, steps):
+    sim, x = scenes.cloth_drape(DRAPE_NX, DRAPE_NX, pin, where)
+    x0, v = x, torch.zeros_like(x)
+    xs = []
+    for _ in range(steps):
+        x, v = cloth.implicit_step(sim, x, v, DRAPE_DT)
+        xs.append(x)
+    return x0, xs, v
+
+
+def drape_path(dev, card):
+    phase("28 the drape (examples/cloth_drape.py), card against CPU")
+    cpu = torch.device("cpu")
+    steps = DRAPE_FRAMES * DRAPE_SUBSTEPS
+    pins = [0, (DRAPE_NX - 1) * DRAPE_NX]
+    out = {}
+    for pin in (True, False):
+        what = "pinned" if pin else "free"
+        (x0, xs, v), sec = _event_seconds(lambda: _drape_run(dev, pin,
+                                                             steps))
+        x = xs[-1]
+        print(f"  {what}: {DRAPE_NX}x{DRAPE_NX}, {DRAPE_FRAMES} frames x "
+              f"{DRAPE_SUBSTEPS} substeps: {sec * 1e3 / DRAPE_FRAMES:.3f} "
+              f"ms/frame ({card}), y min {x[:, 1].min().item():.5f}, "
+              f"|v| max {v.abs().max().item():.4f}", flush=True)
+        check(bool(torch.isfinite(x).all()), f"{what}: every position "
+                                             f"finite")
+        lo = min(xk[:, 1].min().item() for xk in xs)
+        check(lo > 0.0, f"{what}: no vertex below the ground in any step "
+                        f"(y min {lo:.6f})")
+        if pin:
+            err = (x[pins] - x0[pins]).abs().max().item()
+            check(err <= 1e-6, f"pinned corners fixed ({err:.3g})")
+        _, xs_c, _ = _drape_run(cpu, pin, DRAPE_CMP)
+        for k in range(DRAPE_CMP):
+            torch.testing.assert_close(xs[k].cpu(), xs_c[k], **TOL_CLOTH)
+        check(True, f"{what}: the first {DRAPE_CMP} steps on the card = "
+                    f"the CPU port's (rtol 3e-4, atol 5e-6)")
+        out[what] = sec * 1e3 / DRAPE_FRAMES
+    return out
+
+
+def _cloth_step(sim, x, v, window):
+    return cloth.implicit_step(
+        sim, x, v, CLOTH_DT, newton_iters=CLOTH_NEWTON, cg_iters=CLOTH_CG,
+        self_contact=True, max_cand=CLOTH_MC, contact_window=window,
+        with_stats=True)
+
+
+def _cloth_gates(x, nx, what):
+    """Every position finite; every inner vertex of layer B (over A's
+    triangles: the half-cell shift leaves B's last row and column over
+    A's edge) above A's plane at 0.2 less 1e-4."""
+    n = nx * nx
+    check(bool(torch.isfinite(x).all()), f"{what}: every position finite")
+    i = torch.arange(nx - 1, device=x.device)
+    inner = (n + i[:, None] * nx + i[None, :]).reshape(-1)
+    lo = x[inner, 1].min().item()
+    check(lo > 0.2 - 1e-4, f"{what}: every inner vertex of layer B above "
+                           f"layer A's plane less 1e-4 (y min {lo:.6f})")
+
+
+def cloth_bench(dev, card, cfg, label):
+    """The bench's two-layer self-contact drop at ``cfg``: settle with the
+    window step, certify the candidate set, time the window row (and at
+    8k the dense row) by CUDA events over chained steps, gate, and hold a
+    few steps from the settled state against the CPU port."""
+    nx = cfg["nx"]
+    sim, x0 = scenes.cloth_two_layer(nx, dev)
+    nv, nt = x0.shape[0], sim.tris.shape[0]
+    cw = cloth.ContactWindow(radius=1, max_residue=cfg["residue"])
+    print(f"  {nv} vertices, {nt} triangles, dt {CLOTH_DT}, Newton "
+          f"{CLOTH_NEWTON} x CG {CLOTH_CG}, max_cand {CLOTH_MC}, "
+          f"ContactWindow(radius=1, max_residue={cfg['residue']})",
+          flush=True)
+    x, v = x0, torch.zeros_like(x0)
+    iters, settle_ovf = [], 0
+
+    def settle():
+        nonlocal x, v, settle_ovf
+        for _ in range(cfg["settle"]):
+            x, v, ovf, it = _cloth_step(sim, x, v, cw)
+            settle_ovf += int(bool(ovf))
+            iters.append(it)
+    _, sec = _event_seconds(settle)
+    print(f"  settle: {cfg['settle']} window steps in {sec:.3f} s, "
+          f"{settle_ovf} flagged an overflow", flush=True)
+    _, ovf = cloth.self_contact_candidates(sim, x, CLOTH_MC)
+    check(not bool(ovf), f"{label}: the candidate set after settling is not "
+                         f"overflowed (certified)")
+    cand, _ = cloth.self_contact_candidates(sim, x, CLOTH_MC)
+    _, _, valid, rovf = cloth.classify_window_residue(sim, cw, cand)
+    bench = cloth.ContactWindow(radius=1, max_residue=cfg["bench_residue"])
+    bench_ovf = bool(cloth.classify_window_residue(sim, bench, cand)[3])
+    check(not bool(rovf), f"{label}: {int(valid.sum())} residue pairs at the "
+                          f"settled state fit max_residue {cfg['residue']} "
+                          f"(the bench's {cfg['bench_residue']} overflows: "
+                          f"{bench_ovf})")
+    _cloth_gates(x, nx, f"{label} settled")
+    rows = {}
+    for row, window in (("window", cw), ("dense", None)):
+        if row == "dense" and cfg is CLOTH_128K:
+            continue
+        best, flags = None, 0
+        for _ in range(cfg["reps"]):
+            def chain():
+                nonlocal flags
+                xc, vc = x, v
+                for _ in range(cfg["chain"]):
+                    xc, vc, ovf, it = _cloth_step(sim, xc, vc, window)
+                    flags += int(bool(ovf))
+                    iters.append(it)
+                return xc
+            xc, sec = _event_seconds(chain)
+            best = sec if best is None else min(best, sec)
+            _cloth_gates(xc, nx, f"{label} {row} chain")
+        ms = best * 1e3 / cfg["chain"]
+        check(flags == 0, f"{label} {row}: no timed step raised the overflow "
+                          f"flag")
+        print(f"  {row} row: {ms:.3f} ms/step = {nv / ms / 1e3:.4f} M "
+              f"vert-steps/s (best of {cfg['reps']} chains of "
+              f"{cfg['chain']}, {card})", flush=True)
+        rows[row] = ms
+    per_round = [r for it in iters for r in it]
+    print(f"  CG iterations per Newton round: mean "
+          f"{np.mean(per_round):.2f}, max {max(per_round)}, the last step's "
+          f"{iters[-1]}", flush=True)
+    cpu = torch.device("cpu")
+    sim_c, _ = scenes.cloth_two_layer(nx, cpu)
+    xg, vg, xc, vc = x, v, x.cpu(), v.cpu()
+    for k in range(cfg["cpu"]):
+        xg, vg, og, _ = _cloth_step(sim, xg, vg, cw)
+        xc, vc, oc, _ = _cloth_step(sim_c, xc, vc, cw)
+        check(bool(og) == bool(oc), f"step {k}: overflow flags equal")
+        torch.testing.assert_close(xg.cpu(), xc, **TOL_CLOTH)
+    check(True, f"{label}: {cfg['cpu']} window steps from the settled state "
+                f"on the card = the CPU port's (rtol 3e-4, atol 5e-6)")
+    rows["cg_mean"] = float(np.mean(per_round))
+    return rows
+
+
+def cloth_8k(dev, card):
+    phase("29 the bench's two-layer cloth at 8,192 vertices")
+    return cloth_bench(dev, card, CLOTH_8K, "8k")
+
+
+def cloth_128k(dev, card):
+    phase("30 the reference-scale two-layer cloth at 131,072 vertices")
+    return cloth_bench(dev, card, CLOTH_128K, "128k")
+
+
+def _fem_small(where, model_cls):
+    m = model_cls.from_young_poisson(5e4, 0.3, device=where)
+    sim, x, _ = scenes.tet_box_hanging((3, 5, 3), where, m)
+    v = torch.zeros_like(x)
+    for _ in range(FEM_CMP):
+        x, v = fem.implicit_step(sim, x, v, FEM_DT)
+    return x
+
+
+def fem_path(dev, card):
+    phase("31 tet FEM")
+    sim, x0, top = scenes.tet_box_hanging(N_FEM, dev)
+    print(f"  hanging NeoHookean block (E 5e4, nu 0.3): {x0.shape[0]} "
+          f"vertices, {sim.tets.shape[0]} tets, dt {FEM_DT}, Newton 2 x "
+          f"CG 50, {FEM_STEPS} steps", flush=True)
+    iters = []
+
+    def run():
+        x, v = x0, torch.zeros_like(x0)
+        for _ in range(FEM_STEPS):
+            x, v, it = fem.implicit_step(sim, x, v, FEM_DT, with_stats=True)
+            iters.append(it)
+        return x, v
+    (x, v), sec = _event_seconds(run)
+    ms = sec * 1e3 / FEM_STEPS
+    rounds = [r for it in iters for r in it]
+    print(f"  {ms:.3f} ms/step = {x0.shape[0] / ms / 1e3:.4f} M "
+          f"vertex-steps/s ({card}); CG iterations per Newton round: mean "
+          f"{np.mean(rounds):.2f}, max {max(rounds)}", flush=True)
+    check(bool(torch.isfinite(x).all()), "every position finite")
+    err = (x[top] - x0[top]).abs().max().item()
+    check(err <= 1e-6, f"the pinned top row fixed ({err:.3g})")
+    sag = x0[:, 1].min().item() - x[:, 1].min().item()
+    check(sag > 1e-4, f"the block sags ({sag:.3g} m)")
+    vmax = v.abs().max().item()
+    check(vmax < 0.2, f"it settles (|v| max {vmax:.4f} < 0.2)")
+    # tests/test_fem.py's drop
+    sim_d, x = fem.make_tet_box(
+        3, 3, 3, 0.05, device=dev, density=1e3, origin=(0.0, 0.05, 0.0),
+        dhat=0.02, kappa=5.0,
+        model=NeoHookean.from_young_poisson(5e4, 0.3, device=dev))
+    v, lo = torch.zeros_like(x), 1.0
+    for _ in range(50):
+        x, v = fem.implicit_step(sim_d, x, v, 0.005)
+        lo = min(lo, x[:, 1].min().item())
+    check(lo > 0.0, f"the dropped block: no vertex below the ground (y min "
+                    f"{lo:.5f})")
+    for cls in (NeoHookean, FixedCorotated):
+        torch.testing.assert_close(_fem_small(dev, cls).cpu(),
+                                   _fem_small(torch.device("cpu"), cls),
+                                   **TOL_CLOTH)
+        check(True, f"3x5x3 {cls.__name__} box: {FEM_CMP} steps on the card "
+                    f"= the CPU port's (rtol 3e-4, atol 5e-6)")
+    return {"ms_per_step": ms, "cg_mean": float(np.mean(rounds))}
+
+
+def cloth_and_fem(dev, card, geometry_ref):
+    """Phases 27-31, with the scan and NSE launch counts over them;
+    ``geometry_ref`` is the future of :func:`geometry_cpu_reference`."""
+    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    geometry_path(dev, card, geometry_ref)
+    drape = drape_path(dev, card)
+    rows8k = cloth_8k(dev, card)
+    rows128k = cloth_128k(dev, card)
+    fem_row = fem_path(dev, card)
+    launches = (scan_op.LAUNCHES, nse_op.LAUNCHES)
+    print(f"  phases 27-31: {launches[0]} scan and {launches[1]} NSE "
+          f"launches", flush=True)
+    print(json.dumps({"cloth_fem": {"drape_ms_per_frame": drape,
+                                    "cloth_8k": rows8k,
+                                    "cloth_128k": rows128k,
+                                    "fem_33": fem_row}}), flush=True)
+    return launches
+
+
 def main():
     card = environment()
     dev = zpc_tpu_torch.cuda_device(0)
@@ -2762,16 +3114,18 @@ def main():
     container_launches = containers_path(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         rsim, rst, rdt, readme_launches = readme_path(dev, card, tmp)
-    # phase 23's CPU reference runs in a worker process beside the untimed
-    # phases 22-23 (after every timed phase before them)
+    # phase 23's and phase 27's CPU references run in worker processes
+    # beside the untimed phases 22-23 (after every timed phase before them)
     with concurrent.futures.ProcessPoolExecutor(
-            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            2, mp_context=multiprocessing.get_context("spawn")) as pool:
         discs_ref = pool.submit(discs_cpu_reference, DISCS_BINNED)
+        geometry_ref = pool.submit(geometry_cpu_reference)
         readme_card_vs_cpu(dev)
         discs_card_vs_cpu(dev, discs_ref)
     discs_launches, _ = discs_at_scale(dev, card)
     rest_card_vs_cpu(dev)
     migrate_launches, _ = incremental_rebin(rsim, rst, rdt, card)
+    cloth_launches, cloth_nse = cloth_and_fem(dev, card, geometry_ref)
     per_path = {"elastic block (phase 4)": launches,
                 "dam break (phase 10)": fluid_launches,
                 "materials (phase 12)": mat_launches,
@@ -2781,7 +3135,8 @@ def main():
                 "containers, CSR, graphs (phase 20)": container_launches,
                 "README scene through simulate (phase 21)": readme_launches,
                 "2-D discs at scale (phase 24)": discs_launches,
-                "incremental rebin (phase 26)": migrate_launches}
+                "incremental rebin (phase 26)": migrate_launches,
+                "cloth and FEM (phases 27-31)": cloth_launches}
     print(f"  scan launches per path: {per_path}; total "
           f"{sum(per_path.values())}", flush=True)
     launches = sum(per_path.values())
@@ -2802,7 +3157,7 @@ def main():
         "name": "nse", "route": "cuda",
         "source": "zpc_tpu_torch/csrc/nse.cu",
         "replaces": "zpc_tpu/ops/nse_pallas.py:92",
-        "launches": nse_launches, "max_abs_err": nse_err,
+        "launches": nse_launches + cloth_nse, "max_abs_err": nse_err,
         "ms": nse_t["ms"], "device_ms": nse_t["device_ms"],
         "kernels_per_call": nse_t["kernels_per_call"],
         "plain_ms": nse_t["plain_ms"],

@@ -6,6 +6,7 @@ Run from the repository root:
     python3 tools/profile_torch_step.py --scene dam_break   # dam break
     python3 tools/profile_torch_step.py --scene implicit    # implicit block
     python3 tools/profile_torch_step.py --scene contact     # + mesh contact
+    python3 tools/profile_torch_step.py --scene cloth       # two-layer cloth
 
 ``block`` (the default) builds the 262,144-particle elastic block
 (dx = 1/128) with BinnedConfig2(bins_capacity=2560, block_capacity=2048);
@@ -26,6 +27,14 @@ For ``contact`` it also times the contact's parts on the binned state
 (CUDA events, mean of 5): the context, the broad phase, the narrow
 phase's forces and Hessians, one ``dt^2 H_c s0`` product of an operator
 application, and the 32-iteration CCD that ``use_ccd`` adds.
+
+``cloth`` is chip_smoke phase 29's two-layer cloth at 8,192 vertices
+(``scenes.cloth_two_layer(64)``: Newton 2 x CG 24, max_cand 32, the
+window step with radius 1 and max_residue 65,536), settled by 16 window
+steps; it traces 2 steps (no rebin) and times the step's parts by CUDA
+events (mean of 5): the candidate set, the window residue, the
+gradient, the operator's assembly, one application, and the window's
+CCD limiter.
 
 For ``implicit`` it also times three ways to apply the force
 differential at the step's F: ``torch.func.linearize`` of the stress (its
@@ -55,6 +64,7 @@ from zpc_tpu_torch.sim import mpm_binned2 as b2  # noqa: E402
 
 N, DX, STEPS, FLUID_WARM = 262_144, 1.0 / 128, 10, 100
 N_IMP, IMP_STEPS = 1_000_000, 3
+CLOTH_NX, CLOTH_SETTLE, CLOTH_STEPS = 64, 16, 2
 
 
 def _block(dev):
@@ -101,6 +111,47 @@ def _contact(dev):
     return (lambda s: ib2.implicit_step_binned2(sim, s, dt, cfg, contact=mc,
                                                 rebin=False),
             lambda s: b2.rebin_adaptive(sim, s, cfg), bst)
+
+
+def _cloth(dev):
+    """(step, no rebin, (x, v)) of the two-layer cloth, settled."""
+    from zpc_tpu_torch.sim import cloth
+    sim, x = scenes.cloth_two_layer(CLOTH_NX, dev)
+    cw = cloth.ContactWindow(radius=1, max_residue=65_536)
+
+    def step(c):
+        return cloth.implicit_step(sim, c[0], c[1], 0.005, newton_iters=2,
+                                   cg_iters=24, self_contact=True,
+                                   max_cand=32, contact_window=cw)[:2]
+    c = (x, torch.zeros_like(x))
+    for _ in range(CLOTH_SETTLE):
+        c = step(c)
+    x = c[0]
+    cand, _ = cloth.self_contact_candidates(sim, x, 32)
+    res = cloth.classify_window_residue(sim, cw, cand)[:3]
+    op = cloth.assemble_operator(sim, x, x, 0.005, window=cw, window_res=res)
+    p = torch.randn_like(x)
+
+    def grad():
+        z = x.detach().requires_grad_(True)
+        e = (cloth.cloth_energy(sim, z)
+             + cloth.window_contact_energy(sim, cw, z)
+             + cloth._pair_contact_energy(sim, z, *res))
+        return torch.autograd.grad(e, z)[0]
+    parts = {
+        "candidate set": lambda: cloth.self_contact_candidates(sim, x, 32),
+        "window residue": lambda: cloth.classify_window_residue(sim, cw,
+                                                               cand),
+        "gradient": grad,
+        "assembly": lambda: cloth.assemble_operator(
+            sim, x, x, 0.005, window=cw, window_res=res),
+        "one application": lambda: cloth.apply_operator(sim, op, p, 0.005),
+        "window CCD limiter": lambda: cloth._window_ccd_alpha(sim, cw, x,
+                                                              0.01 * p),
+    }
+    for name, fn in parts.items():
+        print(f"  {name}: {_events_ms(fn):.4f} ms", flush=True)
+    return step, None, c
 
 
 def _contact_parts(mc, bst, cfg, dt):
@@ -171,7 +222,7 @@ def _linearize_or_jvp(sim, bst, dt):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=("block", "dam_break", "implicit",
-                                        "contact"), default="block")
+                                        "contact", "cloth"), default="block")
     scene = ap.parse_args().scene
     if not torch.cuda.is_available():
         raise RuntimeError("this probe needs an NVIDIA GPU")
@@ -182,14 +233,17 @@ def main():
     print(card, flush=True)
     dev = zpc_tpu_torch.cuda_device(0)
     step, rebin, bst = {"block": _block, "dam_break": _dam_break,
-                        "implicit": _implicit, "contact": _contact}[scene](dev)
-    steps = IMP_STEPS if scene in ("implicit", "contact") else STEPS
+                        "implicit": _implicit, "contact": _contact,
+                        "cloth": _cloth}[scene](dev)
+    steps = {"implicit": IMP_STEPS, "contact": IMP_STEPS,
+             "cloth": CLOTH_STEPS}.get(scene, STEPS)
 
     def window(s):
         for _ in range(steps):
             s = step(s)
-            bool(s.needs_rebin)
-        return rebin(s)
+            if rebin is not None:
+                bool(s.needs_rebin)
+        return s if rebin is None else rebin(s)
 
     window(bst)                                  # warm-up and build
     torch.cuda.synchronize()
@@ -208,7 +262,8 @@ def main():
         raise RuntimeError("the profiler saw no device time: time with "
                            "CUDA events instead")
     ops = [e for e in ev if e.device_type == DeviceType.CPU]
-    print(f"{scene}: {steps} steps + 1 rebin: wall {wall * 1e3:.4f} ms, "
+    print(f"{scene}: {steps} steps{'' if rebin is None else ' + 1 rebin'}: "
+          f"wall {wall * 1e3:.4f} ms, "
           f"device {device_us / 1e3:.4f} ms, busy share "
           f"{device_us / 1e3 / (wall * 1e3):.4f} ({card})", flush=True)
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:15]:

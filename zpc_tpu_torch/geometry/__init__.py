@@ -12,6 +12,10 @@ _EXPORTS = {
                   "IntersectionLevelSet", "ComplementLevelSet"],
     ".collider": ["Collider", "ColliderType", "resolve_boundaries"],
     ".sparse_grid": ["SparseGrid", "sparse_grid", "neighbor_offsets"],
+    ".ccd_tight": ["CCDResult", "vertex_face_ccd", "edge_edge_ccd_tight"],
+    ".dihedral": ["dihedral_angle", "dihedral_angle_gradient",
+                  "dihedral_angle_hessian", "hinge_bending_energy",
+                  "hinge_bending_gradient", "hinge_bending_hessian"],
 }
 _WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
 __all__ = list(_WHERE)

@@ -5,9 +5,10 @@ and class names only, so this module imports no JAX: a caller that holds
 ``zpc_tpu`` objects already has JAX loaded.  Supported: the explicit MPM
 family in 2-D and 3-D (every analytic level set, every elastic and
 plasticity model, B-spline orders 1-3, FLIP, elastic, plastic and fluid
-states and bin states, configs with the incremental rebin), the LBVH and
-the implicit step's mesh contact (``MeshContact``, ``ContactSet``);
-anything else raises.
+states and bin states, configs with the incremental rebin), the LBVH,
+the implicit step's mesh contact (``MeshContact``, ``ContactSet``), cloth
+(``ClothSim`` with its incidence tables and grid stencil) and tet FEM
+(``FemSim`` with its elastic model); anything else raises.
 """
 
 from __future__ import annotations
@@ -25,13 +26,16 @@ from .geometry import levelset as ls_mod
 from .geometry.sparse_grid import SparseGrid
 from .math.transform import Transform
 from .models import constitutive, plasticity
+from .sim.cloth import ClothSim, ClothStencil
 from .sim.contact_implicit import ContactSet, MeshContact
+from .sim.fem import FemSim
 from .sim.mpm import MPMSim, MPMState
 from .sim.mpm_binned2 import BinnedConfig2, BinState
 
 __all__ = ["sim_from_jax", "config_from_jax", "state_from_jax",
            "binstate_from_jax", "state_to_numpy", "lbvh_from_jax",
-           "lbvh_to_numpy", "mesh_contact_from_jax", "contact_set_from_jax"]
+           "lbvh_to_numpy", "mesh_contact_from_jax", "contact_set_from_jax",
+           "cloth_from_jax", "fem_from_jax"]
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -221,3 +225,36 @@ def contact_set_from_jax(cs, device: torch.device) -> ContactSet:
     """``zpc_tpu.sim.contact_implicit.ContactSet`` -> :class:`ContactSet`
     on ``device``."""
     return ContactSet(_tensor(cs.hits, device), _tensor(cs.overflow, device))
+
+
+def cloth_from_jax(sim, device: torch.device) -> ClothSim:
+    """``zpc_tpu.sim.cloth.ClothSim`` -> :class:`ClothSim` on ``device``:
+    topology, rest quantities and material field for field, the incidence
+    tables when present and the grid stencil (its per-family patches as
+    tensors, ``grids`` and ``tri_starts`` as they are)."""
+    kw = {}
+    for f in dataclasses.fields(ClothSim):
+        v = getattr(sim, f.name)
+        if v is None or f.name == "stencil":
+            kw[f.name] = v
+        else:
+            kw[f.name] = _tensor(v, device)
+    st = sim.stencil
+    if st is not None:
+        kw["stencil"] = ClothStencil(
+            tuple(_tensor(a, device) for a in st.rest_len),
+            tuple(_tensor(a, device) for a in st.rest_angle),
+            tuple(tuple(int(i) for i in g) for g in st.grids),
+            None if st.tri_starts is None
+            else tuple(int(i) for i in st.tri_starts))
+    return ClothSim(**kw)
+
+
+def fem_from_jax(sim, device: torch.device) -> FemSim:
+    """``zpc_tpu.sim.fem.FemSim`` -> :class:`FemSim` on ``device``: the
+    mesh arrays as tensors and the elastic model field for field."""
+    kw = {f.name: (_same_fields(sim.model, constitutive, device)
+                   if f.name == "model" else
+                   _tensor(getattr(sim, f.name), device))
+          for f in dataclasses.fields(FemSim)}
+    return FemSim(**kw)

@@ -15,8 +15,12 @@ two-triangle floor of ``tests/test_contact_implicit.py`` and
 :func:`laplace` the CG Poisson problem of ``bench_poisson``,
 :func:`readme_scene` the README's Quick start through
 :class:`~zpc_tpu_torch.sim.scene.Scene`, and :func:`discs_2d` with
-:func:`discs_2d_config` the two falling discs of ``examples/mpm2d.py``.
-Every scene is built on the caller's device.
+:func:`discs_2d_config` the two falling discs of ``examples/mpm2d.py``,
+:func:`cloth_two_layer` the two-layer self-contact drop of
+``benchmarks/run_all.py:bench_cloth``, :func:`cloth_drape` the cloth of
+``examples/cloth_drape.py`` and :func:`tet_box_hanging` the hanging block
+of ``tests/test_fem.py``.  Every scene is built on the caller's device
+(for the cloth and FEM scenes, None means the card).
 """
 
 from __future__ import annotations
@@ -24,16 +28,23 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .core.executor import cuda_device
 from .geometry.collider import Collider, ColliderType
 from .geometry.levelset import ComplementLevelSet, Cuboid, HalfSpace
 from .models.cfl import timestep_linear_elasticity
 from .models.constitutive import (EquationOfState, FixedCorotated,
-                                  StvkWithHencky, lame_parameters)
+                                  NeoHookean, StvkWithHencky,
+                                  lame_parameters)
 from .models.plasticity import DruckerPrager, SnowPlasticity
+from .sim.cloth import (ClothSim, build_grid_stencil, build_incidence,
+                        make_cloth_grid)
 from .sim.contact_implicit import MeshContact
+from .sim.fem import FemSim, make_tet_box
 from .sim.fluid import make_fluid_state
 from .sim.mpm import MPMSim, MPMState, make_mpm_state
 from .sim.mpm_binned2 import K, BinnedConfig2
@@ -42,7 +53,8 @@ from .sim.scene import Scene
 __all__ = ["mpm_block", "dam_break", "dam_break_config", "materials",
            "MATERIALS", "lbvh_boxes", "implicit_block", "implicit_config",
            "terrain_mesh", "floor_mesh", "contact_block", "poisson_rhs",
-           "laplace", "readme_scene", "discs_2d", "discs_2d_config"]
+           "laplace", "readme_scene", "discs_2d", "discs_2d_config",
+           "cloth_two_layer", "cloth_drape", "tet_box_hanging"]
 
 MATERIALS = ("jello", "snow", "sand", "fluid")
 
@@ -314,3 +326,68 @@ def discs_2d_config(capacity: int, block_capacity: Optional[int] = None
     at 4 ppc fills half a bin."""
     return BinnedConfig2(bins_capacity=max(256, capacity // K * 4),
                          block_capacity=block_capacity)
+
+
+def cloth_two_layer(nx: int, device: Optional[torch.device] = None
+                    ) -> Tuple[ClothSim, torch.Tensor]:
+    """The bench's two-layer self-contact drop (``bench_cloth`` and
+    ``benchmarks/probe_r5_cloth_window.py:build``): two ``nx x nx`` grids
+    at spacing ``0.6 / nx`` in one :class:`ClothSim`, layer A pinned at
+    height 0.2, layer B free above it by ``1.6 spacing`` and shifted half
+    a cell so its vertices land over A's triangles; ``dhat = 0.8533
+    spacing`` (exactly ``0.008 * 64 / nx``: 0.015 and 0.008 at nx = 64),
+    ground far below, k_stretch 2e2, k_bend 1e-4, vertex mass 0.01; both
+    grids stenciled and the incidence tables built.  ``2 nx^2`` vertices,
+    ``4 (nx - 1)^2`` triangles.  Returns ``(sim, x0)``."""
+    dev = cuda_device() if device is None else device
+    spacing = 0.6 / nx
+    gap, dhat = 0.015 * 64 / nx, 0.008 * 64 / nx
+    simA, xA = make_cloth_grid(nx, nx, spacing, height=0.2, dhat=dhat,
+                               ground_off=-10.0, k_stretch=2e2,
+                               k_bend=1e-4, mass=0.01, device=dev)
+    N = xA.shape[0]
+    xB = xA + xA.new_tensor([0.5 * spacing, gap, 0.5 * spacing])
+    free = torch.cat([torch.zeros(N, dtype=torch.bool, device=dev),
+                      torch.ones(N, dtype=torch.bool, device=dev)])
+    two = lambda a, shift=0: torch.cat([a, a + shift])
+    sim = dataclasses.replace(
+        simA, tris=two(simA.tris, N), edges=two(simA.edges, N),
+        hinges=two(simA.hinges, N), rest_len=two(simA.rest_len),
+        rest_angle=two(simA.rest_angle), mass=two(simA.mass), free=free,
+        edge_inc=None, hinge_inc=None, stencil=None)
+    sim = build_grid_stencil(build_incidence(sim),
+                             ((0, nx, nx), (N, nx, nx)))
+    return sim, torch.cat([xA, xB])
+
+
+def cloth_drape(nx: int = 24, ny: int = 24, pin: bool = False,
+                device: Optional[torch.device] = None
+                ) -> Tuple[ClothSim, torch.Tensor]:
+    """``examples/cloth_drape.py``'s cloth: ``nx x ny`` at spacing 0.02 and
+    height 0.3, k_stretch 5e2, k_bend 5e-5, vertex mass 0.005, a ground
+    barrier (dhat 0.02, kappa 2) with friction 0.4; ``pin`` pins the
+    corners 0 and ``(nx - 1) ny``.  The example steps it with dt 0.008, 4
+    substeps per frame."""
+    pins = (0, (nx - 1) * ny) if pin else ()
+    return make_cloth_grid(nx, ny, 0.02, height=0.3, pinned=pins,
+                           k_stretch=5e2, k_bend=5e-5, mass=0.005,
+                           dhat=0.02, kappa=2.0, mu=0.4, device=device)
+
+
+def tet_box_hanging(n=(3, 5, 3), device: Optional[torch.device] = None,
+                    model=None) -> Tuple[FemSim, torch.Tensor, list]:
+    """``tests/test_fem.py``'s hanging block at ``n`` vertices per axis (an
+    int for a cube): its width fixed at 0.1 (spacing ``0.1 / (nx - 1)``,
+    the test's 0.05 at its 3 x 5 x 3), origin (0, 0.3, 0), density 1e3,
+    the top row of vertices pinned; ``model`` defaults to the test's
+    NeoHookean (E 5e4, nu 0.3).  Returns ``(sim, x0, pinned ids)``."""
+    dev = cuda_device() if device is None else device
+    nx, ny, nz = (n, n, n) if isinstance(n, int) else n
+    if model is None:
+        model = NeoHookean.from_young_poisson(5e4, 0.3, device=dev)
+    top = [i * ny * nz + (ny - 1) * nz + k
+           for i in range(nx) for k in range(nz)]
+    sim, x0 = make_tet_box(nx, ny, nz, 0.1 / (nx - 1), model=model,
+                           density=1e3, origin=(0.0, 0.3, 0.0), pinned=top,
+                           device=dev)
+    return sim, x0, top

@@ -2,7 +2,8 @@
 
 The names of ``zpc_tpu.sim`` that the port carries are exported here and
 imported on first use; the v1 binned step is superseded by binned2 and not
-carried, and cloth and FEM are still to port."""
+carried.  Cloth and tet FEM export their steps as ``cloth_implicit_step``
+and ``fem_implicit_step``, as the JAX package does."""
 
 import importlib
 
@@ -16,12 +17,18 @@ _EXPORTS = {
                        "rollout_fluid_binned2", "unbin_fluid_state"],
     ".scene": ["Scene"],
     ".runner": ["simulate"],
+    ".cloth": ["ClothSim", "make_cloth_grid", "cloth_energy"],
+    ".fem": ["FemSim", "make_tet_box", "fem_energy"],
 }
 _WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
-__all__ = list(_WHERE)
+# exported names that differ from the module's own: name -> (module, attr)
+_RENAMED = {"cloth_implicit_step": (".cloth", "implicit_step"),
+            "fem_implicit_step": (".fem", "implicit_step")}
+__all__ = list(_WHERE) + list(_RENAMED)
 
 
 def __getattr__(name):
-    if name not in _WHERE:
+    mod, attr = _RENAMED.get(name, (_WHERE.get(name), name))
+    if mod is None:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-    return getattr(importlib.import_module(_WHERE[name], __name__), name)
+    return getattr(importlib.import_module(mod, __name__), attr)
