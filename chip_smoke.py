@@ -2,14 +2,16 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Nine paths run at full width: the explicit-MPM elastic block, the LBVH
-broad phase, the weakly compressible dam break, the implicit-MPM block
+Ten paths run at full width: the explicit-MPM elastic block, the LBVH
+broad phase with its query family, the weakly compressible dam break and
+its surface, the implicit-MPM block
 (BASELINE config 5 without contact), the same block over a mesh with IPC
 contact (config 5 as specified, over a two-triangle floor and over the
 bench's two heightfields), the README's Quick start through ``Scene`` and
 ``simulate`` with bgeo frames and checkpoints, examples/mpm2d.py's
 discs in 2-D at a user's scale, the bench's two-layer self-contact cloth
-at 8,192 and 131,072 vertices and a 33^3 tet FEM block; the four
+at 8,192 and 131,072 vertices, a 33^3 tet FEM block and ray and nearest
+queries over config 5's 100,352-triangle heightfield; the four
 materials of examples/materials.py run at their own size, the CG Poisson
 solve of
 BASELINE config 2 at its bench size, the parallel primitives of BASELINE
@@ -198,16 +200,62 @@ caught):
    ground; the 3 x 5 x 3 box, NeoHookean and FixedCorotated, 5 steps
    card against CPU.
 
+32. the LBVH query family on phase 7's tree (bench_bvh's query boxes,
+   the boxes grown by 0.004): every extraction (peel, bitpeel, topk,
+   scan, none) at tile 256, group 32 and 16 and 8 hits, plain and
+   decomposed c8, each equal to peel; 2,048 sampled c8 queries against a
+   brute force; the c8 join under bench_bvh's compact budget (0.4 x nq x
+   8, flagged iff the live cells exceed it) and under the live count,
+   equal to the uncompacted join where both certify a query;
+   query_nearest_sorted of the 1,048,576 queries c + 0.001 against the
+   point primitives c, query_nearest on the out-of-band residue, 2,048
+   sampled against a brute force (distances equal, ties accepted);
+   BvttFront.rebuild at 65,536 queries (the scan kernel) and refresh
+   after a move, against a brute force; build_bvs/bvs_query at 65,536
+   boxes with a window no query overflows, every count equal to the
+   exact LBVH query's; each timed (CUDA events, mean of 5; the residue
+   walk, launch-bound, once; of the extractions peel and none, the
+   others being one code path with peel); every scan and NSE sweep the
+   counted calls launch (the front's compaction, the Bvs check's
+   build_lbvh) replayed against the plain version on its own input;
+33. mesh queries on config 5's large heightfield
+   (``scenes.terrain_trimesh(224)``, 100,352 triangles): mesh_aabbs ->
+   build_lbvh (2 NSE launches, each replayed against the plain version),
+   query_ray of 1,048,576 downward rays from
+   y = 1 (ray_triangle_intersection) and query_nearest of 1,048,576
+   points in [0, 1] x [0.5, 0.62] x [0, 1] (sqrt of
+   point_triangle_dist2), 2,048 of each against a brute force over every
+   triangle (within 1e-5, either triangle at a shared edge); ms, Mq/s and
+   walk steps; tet_surface of phase 31's 33^3 mesh (12,288 faces) and its
+   volumes (the box's);
+34. the surface of phase 10's final dam-break state (262,144 particles,
+   dx = 1/128) as examples/dam_break.py makes it:
+   levelset_from_points(radius 1.5 dx) -> flood_fill ->
+   surface_from_levelset(iso 1.2 dx), the block table and the soup sized
+   from the host counts (neither overflows), the block activation's
+   scans replayed against the plain version; gated: watertight (every
+   edge of two triangles once corners within 1e-4 dx are welded),
+   normals out of the fluid, write_obj/read_obj exact, and a 1/8
+   subsample's table, SDF and soup on the card equal to the CPU port's
+   bit for bit (the CPU side in a worker beside phases 22-23);
+35. robust geometry card against CPU: the four predicates on 65,536
+   near-degenerate configurations (lattice points, 1-ulp moves) bit for
+   bit, their signs against an exact oracle on 2,048; BigInt and
+   RationalW arithmetic limb for limb; the cells' tests on lattice and
+   random batches.  It runs, untimed, beside phase 23's CPU worker, after
+   phases 22 and 25.
+
 The scan's launches in the kernel record are those of phases 4, 10, 12,
-13, 16, 19, 20, 21, 24 and 26 (a line before gives them per path, with
-phases 27-31's, which launch neither kernel).  The
-last two lines are the kernel record and the contract line
-``{"ok": true, "device": {...}}``.
+13, 16, 19, 20, 21, 24, 26 and 32-34, NSE's those of phases 7 and 32-34
+(a line before gives them per path, with phases 27-31's, which launch
+neither kernel).  The last two lines are the kernel record and the
+contract line ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
 import contextlib
 import dataclasses
+import importlib
 import json
 import multiprocessing
 import os
@@ -228,11 +276,20 @@ from torch.profiler import (  # noqa: E402
 
 import zpc_tpu_torch  # noqa: E402
 from zpc_tpu_torch import _kernels, scenes  # noqa: E402
+from zpc_tpu_torch.containers import block_table  # noqa: E402
 from zpc_tpu_torch.containers import bvh as bvh_mod  # noqa: E402
+from zpc_tpu_torch.containers import bvs as bvs_mod  # noqa: E402
 from zpc_tpu_torch.ops import nse as nse_op  # noqa: E402
 from zpc_tpu_torch.ops import scan as scan_op  # noqa: E402
 from zpc_tpu_torch.geometry import ccd_tight, dihedral  # noqa: E402
+from zpc_tpu_torch.geometry import cells as cells_mod  # noqa: E402
+from zpc_tpu_torch.geometry import distance, marching  # noqa: E402
 from zpc_tpu_torch.geometry import levelset  # noqa: E402
+from zpc_tpu_torch.geometry import mesh as mesh_mod  # noqa: E402
+from zpc_tpu_torch.geometry import predicates  # noqa: E402
+from zpc_tpu_torch.geometry import sparse_levelset as sls_mod  # noqa: E402
+from zpc_tpu_torch.geometry.sparse_grid import (  # noqa: E402
+    neighbor_offsets)
 from zpc_tpu_torch.geometry.collider import (Collider,  # noqa: E402
                                              ColliderType)
 from zpc_tpu_torch.math import solvers  # noqa: E402
@@ -252,6 +309,9 @@ from zpc_tpu_torch.sim import mpm as mpm_mod  # noqa: E402
 from zpc_tpu_torch.sim import mpm_binned2 as b2  # noqa: E402
 from zpc_tpu_torch.sim import runner  # noqa: E402
 from zpc_tpu_torch.utils import io as io_mod  # noqa: E402
+
+# zpc_tpu_torch.math exports a function named bigint over its submodule
+bigint_mod = importlib.import_module("zpc_tpu_torch.math.bigint")
 
 N_MAIN, DX_MAIN, CHAIN = 262_144, 1.0 / 128, 720
 CFG_MAIN = b2.BinnedConfig2(bins_capacity=2560, block_capacity=2048)
@@ -338,12 +398,19 @@ CLOTH_128K = dict(nx=256, bench_residue=8192, residue=1 << 20, settle=20,
                   chain=5, reps=1, cpu=1)
 TOL_CLOTH = dict(rtol=3e-4, atol=5e-6)    # tests/test_cloth.py:490
 N_FEM, FEM_STEPS, FEM_DT, FEM_CMP = 33, 40, 0.01, 5
+# the LBVH query family on phase 7's tree (2,048 queries of each sampled
+# for brute force; the front's and the sweep structure's sizes), the
+# 1,048,576 rays and points over the 224 x 224 heightfield, and the robust
+# geometry's batches (the exact oracle runs on the first N_EXACT)
+N_SAMPLE, N_FRONT, N_BVS, N_RAYS = 2_048, 65_536, 65_536, 1_048_576
+N_PRED, N_EXACT, N_BIG = 65_536, 2_048, 4_096
 HBM_BYTES_PER_MS = 3.35e12 / 1e3     # H100 SXM HBM3 rate (data sheet)
 _WINDOW = "timed calls"               # the profiler window of device_split
+_T0 = time.perf_counter()             # the phases print their start time
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name}  [{time.perf_counter() - _T0:.1f} s]", flush=True)
 
 
 def check(cond, what):
@@ -936,6 +1003,25 @@ def recorded_nse():
         bvh_mod.nse = inner
 
 
+@contextlib.contextmanager
+def replayed(what):
+    """Record every scan and NSE sweep that the block runs, then replay
+    each against its plain version on the same input (exact) and print
+    the shapes replayed.  The replays launch no kernel."""
+    with recorded_scans() as scans, recorded_nse() as sweeps:
+        yield
+    sizes = replay_scans(scans)
+    for d, strict, out in sweeps:
+        if not torch.equal(out, nse_op.nse_reference(d, strict)):
+            raise AssertionError(f"{what}: NSE strict={strict} g="
+                                 f"{d.numel()} differs from the plain "
+                                 f"version")
+    check(True, f"{what}: its {len(scans)} scans (n, op) {sizes} and "
+                f"{len(sweeps)} NSE sweeps (g = "
+                f"{sorted({d.numel() for d, _, _ in sweeps})}) = the plain "
+                f"versions on the same inputs, exact")
+
+
 _TREE_INTS = ("codes", "left", "right", "escape", "leaf_prim")
 
 
@@ -1284,7 +1370,8 @@ def dam_break_path(dev, card):
           f"{bs:.4f} ms (mean of 10; {card})", flush=True)
     return launches, {"ms_per_step": ms, "pps": N_FLUID / ms * 1e3,
                       "rebins": rebins, "steps": steps,
-                      "rebin_ms": reb_ms, "launches_bin": launches_bin}
+                      "rebin_ms": reb_ms, "launches_bin": launches_bin,
+                      "x": _alive_cols(out)[:, 0:3].contiguous()}
 
 
 def _small_fluid_run(dev, steps):
@@ -3089,6 +3176,654 @@ def cloth_and_fem(dev, card, geometry_ref):
     return launches
 
 
+# -- phases 32-35: the LBVH query family, mesh queries, surfacing, robust
+# geometry
+
+def _hit_keys(qid, hits, keep):
+    """Sorted (query << 32 | prim) keys of the hits of rows whose query is
+    marked in ``keep`` (per query)."""
+    q = qid.long()[:, None].expand_as(hits)
+    live = (hits >= 0) & keep[q]
+    return torch.sort(q[live] * (1 << 32) + hits[live].long()).values
+
+
+def _per_query(out, nq):
+    """Per query (counts, certified) of join rows: counts add over a
+    query's rows; certified when it has a row and every row is in band
+    (a query whose cells an overflowing ``compact`` budget cut has none)."""
+    qid, _, cnt, band = out
+    q = qid.long()
+    cnt_q = torch.zeros(nq, dtype=torch.int64, device=q.device).index_add_(
+        0, q, cnt.long())
+    band_q = torch.ones(nq, dtype=torch.int32, device=q.device)
+    band_q = band_q.scatter_reduce(0, q, band.to(torch.int32), "amin") > 0
+    rows = torch.zeros(nq, dtype=torch.bool, device=q.device)
+    rows[q] = True
+    return cnt_q, band_q & rows
+
+
+def _dist(p, q):
+    """Euclidean distance with one fixed summation order."""
+    d = p - q
+    return torch.sqrt((d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+                      + d[..., 2] * d[..., 2])
+
+
+def _join_extractions(bvh, qlo, qhi, card):
+    """Every extraction, plain and decomposed c8, at bench_bvh's settings;
+    each equal to peel.  Only peel and none are timed: bitpeel, topk and
+    scan run peel's code.  Returns the c8 peel output at 16 hits and the
+    times."""
+    ms, c8 = {}, None
+    for mode, kw in (("plain", {}), ("c8", dict(decompose=True, cells=8))):
+        for mh in (16, 8):
+            ref = None
+            for ex in bvh_mod.EXTRACTS:
+                out = bvh_mod.query_overlaps_sorted(
+                    bvh, qlo, qhi, mh, tile=256, group=32, extract=ex, **kw)
+                if ref is None:
+                    ref = out
+                    continue
+                for name, a, b in zip(("qid", "hits", "counts", "in_band"),
+                                      out, ref):
+                    if name == "hits" and ex == "none":
+                        if not bool((a == -1).all()):
+                            raise AssertionError("extract none: hits")
+                    elif not torch.equal(a, b):
+                        raise AssertionError(f"{mode} {ex}-{mh}: {name} "
+                                             f"differs from peel's")
+            if mode == "c8" and mh == 16:
+                c8 = ref
+            if mode == "plain" and mh == 16:
+                band = ref[3].float().mean().item()
+        check(True, f"{mode}: bitpeel, topk, scan and none = peel at 16 and "
+                    f"8 hits (qid, hits, counts, in_band; none: counts only)")
+        for ex in ("peel", "none"):
+            ms[f"{mode} {ex}"] = cuda_ms(
+                lambda ex=ex: bvh_mod.query_overlaps_sorted(
+                    bvh, qlo, qhi, 16, tile=256, group=32, extract=ex,
+                    **kw), 5, warmup=1)
+    n = qlo.shape[0]
+    _, cert = _per_query(c8, n)
+    print(f"  in-band fraction: plain {band:.6f}, c8 per query "
+          f"{cert.float().mean().item():.6f}", flush=True)
+    for key, t in ms.items():
+        print(f"  {key}-16: {t:.4f} ms = {n / t / 1e3:.4f} Mq/s (mean of 5; "
+              f"{card})", flush=True)
+    return c8, ms
+
+
+def _join_vs_brute(lo, hi, qlo, qhi, out, sample, what):
+    """Counts and hit sets (count <= 16) of the sampled queries that
+    ``out`` (decomposed rows) certifies, against brute force."""
+    n = qlo.shape[0]
+    cnt, cert = _per_query(out, n)
+    s = sample[cert[sample]]
+    bcnt, bpairs = _sample_brute(lo, hi, qlo[s], qhi[s])
+    check(torch.equal(cnt[s], bcnt), f"{what}: counts of the {s.numel()} "
+                                     f"certified sampled queries = brute "
+                                     f"force")
+    qmap = torch.full((n,), -1, dtype=torch.int64, device=lo.device)
+    qmap[s] = torch.arange(s.numel(), device=lo.device)
+    got = _row_pairs(out[0], out[1], qmap)
+    got = got[bcnt[got >> 32] <= 16]
+    small = bcnt[bpairs[:, 0]] <= 16
+    want = torch.sort(bpairs[small, 0] * (1 << 32) + bpairs[small, 1]).values
+    check(torch.equal(got, want), f"{what}: their hit sets (count <= 16) = "
+                                  f"brute force")
+
+
+def _compact(bvh, qlo, qhi, c8, card):
+    """The decomposed c8 join with a live-cell budget: bench_bvh's 0.4 x nq
+    x 8, then the live count rounded up to the tile; where not flagged,
+    equal to the uncompacted join."""
+    n = qlo.shape[0]
+    live = int(bvh_mod._decompose(bvh, qlo, qhi, 8)[2].sum())
+    cnt_u, cert_u = _per_query(c8, n)
+    for label, budget in (("0.4 x nq x 8", int(0.4 * n * 8) // 256 * 256),
+                          ("the live cells", -(-live // 256) * 256)):
+        out = bvh_mod.query_overlaps_sorted(
+            bvh, qlo, qhi, 16, tile=256, group=32, decompose=True, cells=8,
+            compact=budget)
+        cnt, cert = _per_query(out, n)
+        flagged = not bool(out[3].any())
+        print(f"  compact = {label} = {budget} entries for {live} live cells "
+              f"({live / n:.4f} per query): "
+              f"{'every row flagged (overflow)' if flagged else 'fits'}; "
+              f"{cert.float().mean().item():.6f} of the queries certified",
+              flush=True)
+        check(flagged == (live > budget), f"compact {budget}: flagged iff "
+                                          f"the live cells exceed it")
+        both = cert & cert_u
+        check(torch.equal(cnt[both], cnt_u[both]) and torch.equal(
+            _hit_keys(out[0], out[1], both), _hit_keys(c8[0], c8[1], both)),
+            f"compact {budget}: counts and hit sets = the uncompacted join's "
+            f"on the {int(both.sum())} queries both certify")
+        if not flagged:
+            check(cert.float().mean() >= cert_u.float().mean() - 0.005,
+                  "compacted: certified fraction within 0.005 of the "
+                  "uncompacted join's")
+            ms = cuda_ms(lambda: bvh_mod.query_overlaps_sorted(
+                bvh, qlo, qhi, 16, tile=256, group=32, decompose=True,
+                cells=8, compact=budget), 5, warmup=1)
+            print(f"  compacted c8 peel-16: {ms:.4f} ms = "
+                  f"{n / ms / 1e3:.4f} Mq/s (mean of 5; {card})", flush=True)
+
+
+def _nearest(bvh, c, sample, card):
+    """query_nearest_sorted at N_BVH queries c + 0.001 against the point
+    primitives c, query_nearest on the out-of-band residue; the sampled
+    queries against brute force (distances equal, ties accepted)."""
+    q = c + 0.001
+
+    def banded():
+        return bvh_mod.query_nearest_sorted(bvh, q, c, tile=256, group=32)
+
+    def walk(qs):
+        return bvh_mod.query_nearest(
+            bvh, qs, lambda i, p: _dist(p, c[i.long()]))
+
+    qid, prim, d2, ok = banded()
+    rest = torch.nonzero(~ok).flatten()
+    qs = q[qid.long()]
+    (ids, _), sec = _event_seconds(lambda: walk(qs[rest]))
+    steps = bvh_mod.LAST_WALK_STEPS
+    prim = prim.clone()
+    prim[rest] = ids
+    ms_b = cuda_ms(banded, 5, warmup=1)
+    n = q.shape[0]
+    print(f"  banded nearest: in-band {ok.float().mean().item():.6f} "
+          f"({rest.numel()} residue queries); {ms_b:.4f} ms = "
+          f"{n / ms_b / 1e3:.4f} Mq/s (mean of 5); the residue walk "
+          f"{sec * 1e3:.4f} ms, {steps} steps (one call: launch-bound, "
+          f"~35 launches a step; {card})", flush=True)
+    ms_w = sec * 1e3
+    best = torch.full((sample.numel(),), float("inf"), device=c.device)
+    for s in range(0, n, 131_072):
+        d = c[None, s:s + 131_072] - qs[sample, None]
+        best = torch.minimum(best, ((d[..., 0] * d[..., 0]
+                                     + d[..., 1] * d[..., 1])
+                                    + d[..., 2] * d[..., 2]).amin(1))
+    e = c[prim[sample].long()] - qs[sample]
+    own = (e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1]) + e[:, 2] * e[:, 2]
+    check(bool((prim[sample] >= 0).all()) and torch.equal(own, best),
+          f"{sample.numel()} sampled queries: the nearest primitive's "
+          f"squared distance = brute force's minimum, exactly (ties "
+          f"accepted; {int((~ok[sample]).sum())} of them from the walk)")
+    check(torch.equal(d2[sample][ok[sample]], best[ok[sample]]),
+          "the banded distances of the certified ones = brute force's")
+    return {"banded_ms": ms_b, "walk_ms": ms_w,
+            "in_band": ok.float().mean().item()}
+
+
+def _front(bvh, lo, hi, qlo, qhi, card):
+    """BvttFront.rebuild at N_FRONT queries and refresh after a move,
+    against brute force on a sample."""
+    q0, q1 = qlo[:N_FRONT], qhi[:N_FRONT]
+    before = scan_op.LAUNCHES
+    with replayed("BvttFront.rebuild"):
+        f = bvh_mod.BvttFront.rebuild(bvh, q0, q1, 16, N_FRONT * 16)
+        torch.cuda.synchronize()
+        scans = scan_op.LAUNCHES - before
+    check(scans > 0, f"BvttFront.rebuild launched the scan kernel ({scans} "
+                     f"times)")
+    gen = torch.Generator().manual_seed(2)
+    sample = torch.randperm(N_FRONT, generator=gen)[:N_SAMPLE].to(lo.device)
+    bcnt, bpairs = _sample_brute(lo, hi, q0[sample], q1[sample])
+    n = int(f.count)
+    per_q = torch.bincount(f.qid[:n].long(), minlength=N_FRONT)
+    check(torch.equal(per_q[sample], torch.clamp(bcnt, max=16)),
+          f"front: pairs per sampled query = min(brute count, 16) ({n} "
+          f"pairs for {N_FRONT} queries)")
+    qmap = torch.full((N_FRONT,), -1, dtype=torch.int64, device=lo.device)
+    qmap[sample] = torch.arange(N_SAMPLE, device=lo.device)
+    slot = qmap[f.qid[:n].long()]
+    keep = slot >= 0
+    fk = slot[keep] * (1 << 32) + f.pid[:n][keep].long()  # sampled pairs
+    got = torch.sort(fk).values
+    small = bcnt[bpairs[:, 0]] <= 16
+    want = torch.sort(bpairs[small, 0] * (1 << 32) + bpairs[small, 1]).values
+    got = got[bcnt[got >> 32] <= 16]
+    check(torch.equal(got, want), "front: the sampled queries' pairs = "
+                                  "brute force's (count <= 16)")
+    move = torch.tensor([0.003, 0.0, 0.0], device=lo.device)
+    live = f.refresh(lo, hi, q0 + move, q1 + move)
+    _, moved = _sample_brute(lo, hi, q0[sample] + move, q1[sample] + move)
+    mk = set((moved[:, 0] * (1 << 32) + moved[:, 1]).tolist())
+    lk = fk[live[:n][keep]]
+    check(set(lk.tolist()) == set(fk.tolist()) & mk,
+          f"refresh after a move of 0.003: the sampled live pairs = the "
+          f"front's pairs that still overlap by brute force "
+          f"({int(live.sum())} of {n} live)")
+    check(not bool(f.refresh(lo, hi, q0 + 10.0, q1 + 10.0).any()),
+          "refresh after a move of 10: no pair live")
+    ms_r = cuda_ms(lambda: bvh_mod.BvttFront.rebuild(
+        bvh, q0, q1, 16, N_FRONT * 16), 5, warmup=1)
+    ms_f = cuda_ms(lambda: f.refresh(lo, hi, q0 + move, q1 + move), 5,
+                   warmup=1)
+    print(f"  BvttFront: rebuild of {N_FRONT} queries {ms_r:.4f} ms "
+          f"({bvh_mod.LAST_WALK_STEPS} walk steps), refresh {ms_f:.4f} ms "
+          f"(mean of 5; {card})", flush=True)
+    return scans, {"rebuild_ms": ms_r, "refresh_ms": ms_f}
+
+
+def _bvs(dev, card):
+    """build_bvs / bvs_query on N_BVS boxes of the scene with its grown
+    boxes as queries, the window sized so that no query truncates; counts
+    equal the exact LBVH query's, sampled hit sets brute force's."""
+    lo, hi, c = scenes.lbvh_boxes(N_BVS, dev)
+    qlo, qhi = lo - 0.004, hi + 0.004
+    b = bvs_mod.build_bvs(lo, hi)
+    span = bvs_mod.bvs_candidates(b, qlo, qhi)
+    mc = int(span.max())
+    ids, mask = bvs_mod.bvs_query(b, qlo, qhi, mc)
+    trunc = int((span > mc).sum())
+    print(f"  Bvs: {N_BVS} boxes and queries, window {mc} candidates (the "
+          f"widest sweep range), {trunc} queries truncated", flush=True)
+    check(trunc == 0, "Bvs: no query truncated")
+    before = nse_op.LAUNCHES
+    with replayed(f"the Bvs check's build_lbvh ({N_BVS} boxes)"):
+        tree = bvh_mod.build_lbvh(lo, hi)
+        torch.cuda.synchronize()
+        nses = nse_op.LAUNCHES - before
+    _, _, cnt, ovf = bvh_mod.query_overlaps_exact(
+        tree, qlo, qhi, 16, cells=8, residue_budget=N_BVS)
+    check(not bool(ovf) and torch.equal(mask.sum(1).to(torch.int32), cnt),
+          "Bvs: every query's count = the exact LBVH query's")
+    gen = torch.Generator().manual_seed(3)
+    s = torch.randperm(N_BVS, generator=gen)[:N_SAMPLE].to(dev)
+    _, bp = _sample_brute(lo, hi, qlo[s], qhi[s])
+    i, j = torch.nonzero(mask[s], as_tuple=True)
+    got = torch.sort(i * (1 << 32) + ids[s][i, j].long()).values
+    check(torch.equal(got, torch.sort(bp[:, 0] * (1 << 32) + bp[:, 1])
+                      .values), f"Bvs: {N_SAMPLE} sampled hit sets = brute "
+                                f"force")
+    ms_b = cuda_ms(lambda: bvs_mod.build_bvs(lo, hi), 5, warmup=1)
+    ms_q = cuda_ms(lambda: bvs_mod.bvs_query(b, qlo, qhi, mc), 5, warmup=1)
+    print(f"  Bvs: build {ms_b:.4f} ms, query {ms_q:.4f} ms = "
+          f"{N_BVS / ms_q / 1e3:.4f} Mq/s (mean of 5; {card})", flush=True)
+    return nses, {"window": mc, "build_ms": ms_b, "query_ms": ms_q}
+
+
+def lbvh_queries(dev, card, bvh, lo, hi, c):
+    phase("32 LBVH query family on config 4's tree")
+    qlo, qhi = lo - 0.004, hi + 0.004            # bench_bvh's query boxes
+    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    c8, ms = _join_extractions(bvh, qlo, qhi, card)
+    gen = torch.Generator().manual_seed(1)
+    sample = torch.randperm(N_BVH, generator=gen)[:N_SAMPLE].to(dev)
+    _join_vs_brute(lo, hi, qlo, qhi, c8, sample, "c8 peel-16")
+    _compact(bvh, qlo, qhi, c8, card)
+    near = _nearest(bvh, c, sample, card)
+    scans, front = _front(bvh, lo, hi, qlo, qhi, card)
+    nses, bvs_row = _bvs(dev, card)
+    launches = (scans, nses)
+    print(f"  phase 32, before its timed calls: {scans} scan launches "
+          f"(BvttFront.rebuild), {nses} NSE (the Bvs check's tree)",
+          flush=True)
+    return launches, {"join_ms": ms, "nearest": near, "front": front,
+                      "bvs": bvs_row}
+
+
+def mesh_queries(dev, card):
+    phase("33 mesh queries on config 5's large heightfield")
+    tm = scenes.terrain_trimesh(TERRAIN_RES[1], dev)
+    tri = tm.vertices[tm.faces.long()]
+    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    with replayed(f"build_lbvh over {tm.num_faces} triangle boxes"):
+        b = bvh_mod.build_lbvh(*mesh_mod.mesh_aabbs(tm))
+        torch.cuda.synchronize()
+        launches = (scan_op.LAUNCHES, nse_op.LAUNCHES)
+    check(launches[1] == 2, f"build_lbvh over the {tm.num_faces} triangles' "
+                            f"boxes launched the NSE kernel twice")
+    ms_build = cuda_ms(lambda: bvh_mod.build_lbvh(
+        *mesh_mod.mesh_aabbs(tm)), 5, warmup=1)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    o = torch.rand((N_RAYS, 3), generator=gen, device=dev)
+    o[:, 1] = 1.0
+    d = torch.zeros_like(o)
+    d[:, 1] = -1.0
+    p = torch.rand((N_RAYS, 3), generator=gen, device=dev)
+    p[:, 1] = 0.5 + 0.12 * p[:, 1]
+
+    def hit(i, oo, dd):
+        t3 = tri[i.long()]
+        h, t = cells_mod.ray_triangle_intersection(oo, dd, t3[:, 0],
+                                                   t3[:, 1], t3[:, 2])
+        return torch.where(h, t, float("inf"))
+
+    def dist(i, q):
+        t3 = tri[i.long()]
+        return torch.sqrt(distance.point_triangle_dist2(
+            q, t3[:, 0], t3[:, 1], t3[:, 2]))
+
+    ids, t = bvh_mod.query_ray(b, o, d, hit)
+    ray_steps = bvh_mod.LAST_WALK_STEPS
+    (nid, nd), sec = _event_seconds(lambda: bvh_mod.query_nearest(
+        b, p, dist))
+    near_steps = bvh_mod.LAST_WALK_STEPS
+    check(bool((ids >= 0).all()) and bool((nid >= 0).all()),
+          f"every one of the {N_RAYS} rays hits the heightfield and every "
+          f"point finds a triangle")
+    s = torch.randperm(N_RAYS, generator=torch.Generator().manual_seed(4)
+                       )[:N_SAMPLE].to(dev)
+    bt = torch.full((N_SAMPLE,), float("inf"), device=dev)
+    bd = torch.full((N_SAMPLE,), float("inf"), device=dev)
+    for k in range(0, tri.shape[0], 16_384):
+        t3 = tri[None, k:k + 16_384]
+        h, tt = cells_mod.ray_triangle_intersection(
+            o[s, None], d[s, None], t3[..., 0, :], t3[..., 1, :],
+            t3[..., 2, :])
+        bt = torch.minimum(bt, torch.where(h, tt, float("inf")).amin(1))
+        bd = torch.minimum(bd, torch.sqrt(distance.point_triangle_dist2(
+            p[s, None], t3[..., 0, :], t3[..., 1, :], t3[..., 2, :])
+        ).amin(1))
+    own_t = hit(ids[s], o[s], d[s])
+    own_d = dist(nid[s], p[s])
+    ok_t = ((t[s] - bt).abs() <= 1e-5 * bt) & ((own_t - bt).abs()
+                                                <= 1e-5 * bt)
+    ok_d = ((nd[s] - bd).abs() <= 1e-5 * bd + 1e-7) & (
+        (own_d - bd).abs() <= 1e-5 * bd + 1e-7)
+    check(bool(ok_t.all()), f"{N_SAMPLE} sampled rays: t within 1e-5 of "
+                            f"brute force over every triangle (at a shared "
+                            f"edge either triangle)")
+    check(bool(ok_d.all()), f"{N_SAMPLE} sampled points: distance within "
+                            f"1e-5 (+1e-7) of brute force (ties accepted)")
+    ms_ray = cuda_ms(lambda: bvh_mod.query_ray(b, o, d, hit), 5, warmup=1)
+    ms_near = sec * 1e3
+    print(f"  {tm.num_faces} triangles: build_lbvh {ms_build:.4f} ms, "
+          f"query_ray of {N_RAYS} {ms_ray:.4f} ms = "
+          f"{N_RAYS / ms_ray / 1e3:.4f} Mq/s, {ray_steps} walk steps (mean "
+          f"of 5); query_nearest {ms_near:.4f} ms = "
+          f"{N_RAYS / ms_near / 1e3:.4f} Mq/s, {near_steps} walk steps (one "
+          f"call: launch-bound, ~175 launches a step; {card})", flush=True)
+    sim, x0, _ = scenes.tet_box_hanging(N_FEM, dev)
+    tets = mesh_mod.TetMesh(x0, sim.tets)
+    surf, sec = _event_seconds(lambda: mesh_mod.tet_surface(tets))
+    vol = mesh_mod.tet_volumes(tets).double().sum().item()
+    nf = 6 * 2 * (N_FEM - 1) ** 2
+    check(surf.num_faces == nf, f"tet_surface of the {N_FEM}^3 FEM mesh: "
+                                f"{surf.num_faces} faces = 6 x 2 x "
+                                f"{N_FEM - 1}^2 ({sec * 1e3:.3f} ms)")
+    check(abs(vol - 1e-3) <= 1e-5 * 1e-3, f"tet_volumes sum to the box's "
+                                          f"0.1^3 ({vol:.9g})")
+    print(f"  phase 33, before its timed calls: {launches[0]} scan and "
+          f"{launches[1]} NSE launches", flush=True)
+    return launches, {"build_ms": ms_build, "ray_ms": ms_ray,
+                      "ray_steps": ray_steps, "nearest_ms": ms_near,
+                      "nearest_steps": near_steps}
+
+
+def _surface_blocks(x, dx, band=2):
+    """The blocks levelset_from_points activates for ``x`` (its candidates
+    and their one-block dilation), counted on the host."""
+    offs = torch.as_tensor(np.unique(np.floor_divide(
+        neighbor_offsets(3, -band, band), 4), axis=0),
+        device=x.device)
+    cells = torch.div(torch.floor(x / dx).to(torch.int32), 4,
+                      rounding_mode="floor")
+    blk = torch.unique((cells[:, None] + offs[None]).reshape(-1, 3), dim=0)
+    dil = torch.as_tensor(neighbor_offsets(3, 0, 1),
+                          device=x.device)
+    return torch.unique((blk[:, None] + dil[None]).reshape(-1, 3),
+                        dim=0).shape[0]
+
+
+def _surface(x, dx):
+    """examples/dam_break.py's surfacing with the table and the soup sized
+    from the host counts: (level set, soup, seconds per stage)."""
+    cap = _surface_blocks(x, dx)
+    secs = {}
+    t0 = time.perf_counter()
+    ls = sls_mod.levelset_from_points(x, dx=dx, radius=1.5 * dx,
+                                      block_capacity=cap)
+    _sync(x)
+    secs["levelset_from_points"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ls = sls_mod.flood_fill(ls)
+    _sync(x)
+    secs["flood_fill"] = time.perf_counter() - t0
+    need = int(marching.surface_from_levelset(ls, iso=1.2 * dx,
+                                              capacity=1).count)
+    t0 = time.perf_counter()
+    soup = marching.surface_from_levelset(ls, iso=1.2 * dx, capacity=need)
+    _sync(x)
+    secs["surface_from_levelset"] = time.perf_counter() - t0
+    return ls, soup, secs, cap
+
+
+def _sync(x):
+    if x.is_cuda:
+        torch.cuda.synchronize()
+
+
+def surface_cpu_reference(x_sub):
+    """Phase 34's CPU side (the 1/8 subsample), in a worker process beside
+    phases 22-23: the table keys, SDF and soup."""
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // 2))
+    ls, soup, secs, _ = _surface(torch.from_numpy(x_sub), DX_MAIN)
+    return (ls.grid.table.keys, ls.grid.data["sdf"], soup.verts, soup.count,
+            secs)
+
+
+def surface_path(dev, card, x, cpu_ref, tmp):
+    phase("34 surfacing the dam break")
+    dx = DX_MAIN
+    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    with replayed("the surfacing"):
+        ls, soup, secs, cap = _surface(x, dx)
+        launches = (scan_op.LAUNCHES, nse_op.LAUNCHES)
+    n = int(soup.count)
+    print(f"  {x.shape[0]} particles of phase 10's final state, dx = 1/128: "
+          f"{cap} blocks, {n} triangles; "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in secs.items())
+          + f" ({card})", flush=True)
+    check(int(ls.grid.table.count) == cap and not bool(
+        block_table.build_overflowed(ls.grid.table)),
+        f"levelset_from_points: {cap} blocks in a table of {cap} (sized "
+        f"from the host count), no overflow")
+    check(not bool(soup.overflow) and n == soup.verts.shape[0],
+          f"surface_from_levelset: {n} triangles in a soup of {n}, no "
+          f"overflow")
+    check(launches[0] > 0, f"the block activation launched the scan kernel "
+                           f"({launches[0]} times)")
+    tris = soup.verts[:n]
+    t0 = time.perf_counter()
+    v, f = marching.weld(tris, 1e-4 * dx)
+    e = torch.cat([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]])
+    cnt = torch.unique(torch.sort(e, 1).values, dim=0, return_counts=True)[1]
+    weld_s = time.perf_counter() - t0
+    check(bool((cnt == 2).all()), f"watertight: after welding corners "
+                                  f"within 1e-4 dx ({v.shape[0]} vertices, "
+                                  f"{n - f.shape[0]} collapsed slivers "
+                                  f"dropped, {weld_s:.3f} s) every one of "
+                                  f"{cnt.numel()} edges is shared by exactly "
+                                  f"two triangles")
+    nrm = torch.linalg.cross(tris[:, 1] - tris[:, 0], tris[:, 2] - tris[:, 0],
+                             dim=-1)
+    length = torch.linalg.vector_norm(nrm, dim=-1)
+    keep = length > 1e-12
+    u = nrm[keep] / length[keep, None]
+    cen = tris[keep].mean(1)
+    out = ls.sdf(cen + dx * u) > ls.sdf(cen - dx * u)
+    check(bool(out.all()), f"normals point out of the fluid: sdf(c + dx n) "
+                           f"> sdf(c - dx n) at all {int(keep.sum())} "
+                           f"triangles of nonzero area")
+    path = os.path.join(tmp, "dam_break_surface.obj")
+    verts = tris.reshape(-1, 3).cpu().numpy()
+    faces = np.arange(verts.shape[0]).reshape(-1, 3)
+    t0 = time.perf_counter()
+    io_mod.write_obj(path, verts, faces)
+    v2, f2 = io_mod.read_obj(path)
+    obj_s = time.perf_counter() - t0
+    check(np.array_equal(v2, verts) and np.array_equal(f2, faces),
+          f"write_obj then read_obj: {verts.shape[0]} vertices and "
+          f"{faces.shape[0]} faces back exactly ({obj_s:.3f} s)")
+    keys, sdf, sv, sc, cpu_secs = cpu_ref.result()
+    lsg, soupg, _, _ = _surface(x[::8].contiguous(), dx)
+    _same(lsg.grid.table.keys, keys, "1/8 subsample: table keys")
+    _same(lsg.grid.data["sdf"], sdf, "1/8 subsample: SDF")
+    _same(soupg.count, sc, "1/8 subsample: triangle count")
+    _same(soupg.verts, sv, "1/8 subsample: soup")
+    check(True, f"1/8 subsample ({x[::8].shape[0]} particles, "
+                f"{int(sc)} triangles): table, SDF and soup on the card = "
+                f"the CPU port's bit for bit (the CPU took "
+                + ", ".join(f"{k} {v:.2f} s" for k, v in cpu_secs.items())
+                + ")")
+    print(f"  phase 34, before its card-against-CPU run: {launches[0]} scan "
+          f"and {launches[1]} NSE launches", flush=True)
+    return launches, {"blocks": cap, "triangles": n,
+                      **{f"{k}_ms": v * 1e3 for k, v in secs.items()}}
+
+
+def _fr(a):
+    from fractions import Fraction
+    return Fraction(float(a))
+
+
+def _exact_det(rows):
+    """The exact 3x3 determinant of fraction rows, and its permanent."""
+    m = rows
+    det = (m[0][0] * (m[1][1] * m[2][2] - m[1][2] * m[2][1])
+           - m[0][1] * (m[1][0] * m[2][2] - m[1][2] * m[2][0])
+           + m[0][2] * (m[1][0] * m[2][1] - m[1][1] * m[2][0]))
+    a = [[abs(float(v)) for v in r] for r in m]
+    perm = (a[0][0] * (a[1][1] * a[2][2] + a[1][2] * a[2][1])
+            + a[0][1] * (a[1][0] * a[2][2] + a[1][2] * a[2][0])
+            + a[0][2] * (a[1][0] * a[2][1] + a[1][1] * a[2][0]))
+    return det, perm
+
+
+def _exact_pred(name, pts):
+    """Exact value and permanent of a predicate at float32 points."""
+    *ps, q = pts
+    if name == "orient2d":
+        a, b, c = pts
+        x0, y0 = _fr(a[0]) - _fr(c[0]), _fr(a[1]) - _fr(c[1])
+        x1, y1 = _fr(b[0]) - _fr(c[0]), _fr(b[1]) - _fr(c[1])
+        return x0 * y1 - y0 * x1, abs(float(x0 * y1)) + abs(float(y0 * x1))
+    rows = [[_fr(p[j]) - _fr(q[j]) for j in range(len(q))] for p in ps]
+    if name == "orient3d":
+        return _exact_det(rows)
+    for r in rows:
+        r.append(sum(v * v for v in r))
+    if name == "incircle":
+        return _exact_det(rows)
+    det, perm = 0, 0.0
+    for i in range(4):
+        d, pm = _exact_det([rows[k][:3] for k in range(4) if k != i])
+        det += (1 if (i + 3) % 2 == 0 else -1) * rows[i][3] * d
+        perm += abs(float(rows[i][3])) * pm
+    return det, perm
+
+
+_PREDS = {"orient2d": (3, 2), "orient3d": (4, 3), "incircle": (4, 2),
+          "insphere": (5, 3)}
+
+
+def _near_degenerate(name, n, rng):
+    """Degenerate configurations on a lattice away from 0 (colinear,
+    coplanar, cocircular, cospherical: integer points at distance 5 from
+    8), one coordinate of one point moved by one ulp in half of them."""
+    k, dim = _PREDS[name]
+    if name in ("orient2d", "orient3d"):
+        base = rng.integers(8, 24, (n, k - 1, dim)).astype(np.float32) / 8
+        w = rng.integers(1, 4, (n, k - 1, 1)).astype(np.float32) / 4
+        last = base[:, 0] + ((base[:, 1:] - base[:, :1]) * w[:, 1:]).sum(1)
+        pts = np.concatenate([base, last[:, None]], 1)
+    else:
+        on = (np.asarray([[3, 4, 0], [4, 3, 0], [0, 3, 4], [5, 0, 0],
+                          [0, 0, 5], [0, 5, 0], [4, 0, 3]], np.float32)
+              if dim == 3 else
+              np.asarray([[3, 4], [4, 3], [5, 0], [0, 5]], np.float32))
+        sgn = rng.choice([-1.0, 1.0], (n, k, dim)).astype(np.float32)
+        pts = on[rng.integers(0, len(on), (n, k))] * sgn + 8.0
+    i = np.arange(n)
+    p, d = rng.integers(0, k, n), rng.integers(0, dim, n)
+    up = rng.uniform(size=n) < 0.5
+    v = pts[i, p, d]
+    pts[i, p, d] = np.where(rng.uniform(size=n) < 0.5, np.nextafter(
+        v, np.where(up, np.float32(np.inf), np.float32(-np.inf))), v)
+    return pts.astype(np.float32)
+
+
+def robust_geometry(dev, card):
+    phase("35 robust geometry, card against CPU")
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(35)
+    for name, (k, _) in _PREDS.items():
+        pts = _near_degenerate(name, N_PRED, rng)
+        args = [torch.from_numpy(pts[:, i]) for i in range(k)]
+        ref = getattr(predicates, name)(*args)
+        got, sec = _event_seconds(lambda: getattr(predicates, name)(
+            *[a.to(dev) for a in args]))
+        _same(got.view(torch.int32), ref.view(torch.int32),
+              f"{name} values")
+        ex = [_exact_pred(name, pts[r]) for r in range(N_EXACT)]
+        exact = np.asarray([float(e) for e, _ in ex])
+        perm = np.asarray([pm for _, pm in ex])
+        val = got[:N_EXACT].cpu().numpy().astype(np.float64)
+        sure = np.abs(exact) > 2.0 ** -40 * perm
+        within = np.abs(val - exact) <= (2.0 ** -40 * perm
+                                         + 2.0 ** -24 * np.abs(exact))
+        check(np.array_equal(np.sign(val[sure]), np.sign(exact[sure]))
+              and bool(within.all()),
+              f"{name}: {N_PRED} near-degenerate cases (lattice, 1-ulp "
+              f"moves) on the card = the CPU's bit for bit ({sec * 1e3:.3f} "
+              f"ms); of the first {N_EXACT}, every value within 2^-40 of "
+              f"its permanent (plus the float32 result's rounding) of the "
+              f"exact one, and the sign exact at all {int(sure.sum())} "
+              f"past that bound "
+              f"({int((exact == 0).sum())} exactly degenerate; below the "
+              f"bound {int((val[~sure] == 0).sum())} read 0 and "
+              f"{int((val * exact < 0).sum())} the opposite sign)")
+    vals = [int(v) for v in rng.integers(-2 ** 62, 2 ** 62, (2, N_BIG),
+                                         dtype=np.int64).reshape(-1)]
+    a, b = vals[:N_BIG], vals[N_BIG:]
+    outs = []
+    for where in (cpu, dev):
+        x, y = (bigint_mod.bigint(v, device=where) for v in (a, b))
+        g = bigint_mod.bigint_gcd(x, y)
+        r = bigint_mod.rational_w(x, bigint_mod.bigint(
+            [abs(v) + 1 for v in b], device=where))
+        s = r + r * r
+        outs.append([x + y, x - y, x * y, g,
+                     bigint_mod._bigint_div_exact(x * y, y), s.num, s.den,
+                     r.normalized().den])
+    for i, (c_, g_) in enumerate(zip(*outs)):
+        _same(g_.sign, c_.sign, f"BigInt op {i} sign")
+        _same(g_.mag, c_.mag, f"BigInt op {i} limbs")
+    check(outs[0][2].to_pyints() == [p * q for p, q in zip(a, b)],
+          "BigInt products = Python's")
+    check(outs[1][4].to_pyints() == a, "exact division recovers x")
+    check(True, f"BigInt add, sub, mul, gcd, exact division and RationalW "
+                f"add, mul, normalize on {N_BIG} 62-bit values: the card's "
+                f"limbs = the CPU's")
+    rc = np.random.default_rng(5)
+    lat = (rc.integers(-2, 3, (N_PRED, 5, 3)) / 2.0).astype(np.float32)
+    lat[:, :, 2] = 0.0
+    rnd = rc.uniform(-1, 1, (N_PRED, 5, 3)).astype(np.float32)
+    for what, pts in (("lattice", lat), ("random", rnd)):
+        res = []
+        for where in (cpu, dev):
+            p = [torch.from_numpy(pts[:, i]).to(where) for i in range(5)]
+            h, t = cells_mod.ray_triangle_intersection(
+                p[0], p[4] - p[0], p[1], p[2], p[3])
+            res.append([cells_mod.segment_segment_intersection(*p[:4]),
+                        cells_mod.ray_segment_intersection(
+                            p[0], p[1], p[1] - p[0], p[2], p[3]),
+                        cells_mod.point_on_segment(*p[:3]),
+                        cells_mod.is_triangle_degenerated(*p[:3]),
+                        cells_mod.make_bilinear(*p[:4]).facets, h,
+                        t.view(torch.int32)])
+        for i, (c_, g_) in enumerate(zip(*res)):
+            _same(g_, c_, f"cells {what} output {i}")
+        check(True, f"cells on {N_PRED} {what} configurations: segment and "
+                    f"ray tests, point on segment, degeneracy, bilinear "
+                    f"facets, ray-triangle hit and t on the card = the "
+                    f"CPU's bit for bit")
+
+
 def main():
     card = environment()
     dev = zpc_tpu_torch.cuda_device(0)
@@ -3101,7 +3836,7 @@ def main():
     bvh, lo, hi, c, nse_launches = lbvh_path(dev, card)
     lbvh_card_vs_cpu(dev)
     lbvh_numbers(bvh, lo, hi, c, card)
-    fluid_launches, _ = dam_break_path(dev, card)
+    fluid_launches, fluid = dam_break_path(dev, card)
     fluid_card_vs_cpu(dev)
     mat_launches = materials_path(dev, card)
     imp_launches, imp_ms = implicit_path(dev, card)
@@ -3114,18 +3849,31 @@ def main():
     container_launches = containers_path(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
         rsim, rst, rdt, readme_launches = readme_path(dev, card, tmp)
-    # phase 23's and phase 27's CPU references run in worker processes
-    # beside the untimed phases 22-23 (after every timed phase before them)
+    # the CPU references of phases 23, 27 and 34 run in worker processes
+    # beside the untimed phases 22, 25, 35 and 23 (after every timed phase
+    # before them): phase 23's, the longest, would leave the card idle
     with concurrent.futures.ProcessPoolExecutor(
             2, mp_context=multiprocessing.get_context("spawn")) as pool:
         discs_ref = pool.submit(discs_cpu_reference, DISCS_BINNED)
         geometry_ref = pool.submit(geometry_cpu_reference)
+        surface_ref = pool.submit(surface_cpu_reference,
+                                  fluid["x"][::8].cpu().numpy())
         readme_card_vs_cpu(dev)
+        rest_card_vs_cpu(dev)
+        robust_geometry(dev, card)
         discs_card_vs_cpu(dev, discs_ref)
     discs_launches, _ = discs_at_scale(dev, card)
-    rest_card_vs_cpu(dev)
     migrate_launches, _ = incremental_rebin(rsim, rst, rdt, card)
     cloth_launches, cloth_nse = cloth_and_fem(dev, card, geometry_ref)
+    query_launches, _ = lbvh_queries(dev, card, bvh, lo, hi, c)
+    mesh_launches, _ = mesh_queries(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        surface_launches, _ = surface_path(dev, card, fluid["x"],
+                                           surface_ref, tmp)
+    new = {"LBVH query family (phase 32)": query_launches,
+           "mesh queries (phase 33)": mesh_launches,
+           "dam-break surface (phase 34)": surface_launches}
+    print(f"  phases 32-34, (scan, NSE) launches: {new}", flush=True)
     per_path = {"elastic block (phase 4)": launches,
                 "dam break (phase 10)": fluid_launches,
                 "materials (phase 12)": mat_launches,
@@ -3136,7 +3884,8 @@ def main():
                 "README scene through simulate (phase 21)": readme_launches,
                 "2-D discs at scale (phase 24)": discs_launches,
                 "incremental rebin (phase 26)": migrate_launches,
-                "cloth and FEM (phases 27-31)": cloth_launches}
+                "cloth and FEM (phases 27-31)": cloth_launches,
+                **{k: v[0] for k, v in new.items()}}
     print(f"  scan launches per path: {per_path}; total "
           f"{sum(per_path.values())}", flush=True)
     launches = sum(per_path.values())
@@ -3157,7 +3906,8 @@ def main():
         "name": "nse", "route": "cuda",
         "source": "zpc_tpu_torch/csrc/nse.cu",
         "replaces": "zpc_tpu/ops/nse_pallas.py:92",
-        "launches": nse_launches + cloth_nse, "max_abs_err": nse_err,
+        "launches": nse_launches + cloth_nse + sum(
+            v[1] for v in new.values()), "max_abs_err": nse_err,
         "ms": nse_t["ms"], "device_ms": nse_t["device_ms"],
         "kernels_per_call": nse_t["kernels_per_call"],
         "plain_ms": nse_t["plain_ms"],

@@ -516,7 +516,13 @@ def test_query_sorted_rejects_bad_options(scene):
         tbvh.query_overlaps_sorted(scene["tt"], c, c, 16, tile=100)
     with pytest.raises(ValueError):
         tbvh.query_overlaps_sorted(scene["tt"], c, c, 16, tile=64,
-                                   extract="topk")
+                                   extract="sort")
+    with pytest.raises(ValueError):
+        tbvh.query_overlaps_sorted(scene["tt"], c, c, 16, tile=64,
+                                   compact=64)
+    with pytest.raises(ValueError):
+        tbvh.query_overlaps_sorted(scene["tt"], c, c, 16, tile=64,
+                                   decompose=True, compact=96)
 
 
 def test_query_exact_every_query_including_residue():

@@ -8,12 +8,14 @@ CUDA kernel on the card), internal boxes from a sparse table over the
 sorted leaf boxes, and escape pointers by scatter-max.  Node ids: internal
 nodes ``[0, n-1)`` with the root at 0, leaves ``[n-1, 2n-1)``.
 
-Queries: :func:`query_overlaps` is the stackless escape-pointer walk, a
-lockstep loop over the still-active queries; :func:`query_overlaps_sorted`
-is the sorted banded tile join, with the JAX package's tiling, window and
-in-band certificate, so a query's ``in_band`` means the same in both
-packages; :func:`query_overlaps_exact` answers every query exactly with a
-bounded walk for the out-of-band residue.
+Queries: :func:`query_overlaps`, :func:`query_nearest` and
+:func:`query_ray` are the stackless escape-pointer walk, a lockstep loop
+over the still-active queries; :func:`query_overlaps_sorted` and
+:func:`query_nearest_sorted` are the sorted banded tile joins, with the JAX
+package's tiling, window and in-band certificate, so a query's ``in_band``
+means the same in both packages; :func:`query_overlaps_exact` answers every
+query exactly with a bounded walk for the out-of-band residue.
+:class:`BvttFront` caches (query, primitive) pairs between rebuilds.
 
 The JAX package's TPU layout workarounds are not carried over: the f32 row
 packing of the walk, the transposed join orientation and the f32 halves of
@@ -24,28 +26,38 @@ results.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..core.executor import Executor
 from ..math.bits import clz32, common_prefix_length, expand_bits_3d, \
     morton3d, to_int32
+from ..math.rounding import div_rn, sqrt_rn
 from ..ops.nse import nse
+from ..parallel.primitives import inclusive_scan
 
 __all__ = ["LBvh", "aabb_overlap", "build_lbvh", "build_lbvh_complete",
            "query_overlaps", "query_overlaps_sorted", "query_overlaps_exact",
-           "CHECK_EVERY", "LAST_WALK_STEPS"]
+           "query_nearest", "query_nearest_sorted", "query_ray", "BvttFront",
+           "EXTRACTS", "CHECK_EVERY", "LAST_WALK_STEPS"]
 
 BIG = 3.4e38                   # box fill: inverted boxes overlap nothing
 INT32_MAX = 2 ** 31 - 1
 
 CHECK_EVERY = 16
-"""Walk steps between two reads of the :func:`query_overlaps` exit flag."""
+"""Walk steps between two reads of the escape walks' exit flags."""
 
 LAST_WALK_STEPS = 0
-"""Iterations of the most recent :func:`query_overlaps` walk (a multiple of
-:data:`CHECK_EVERY`)."""
+"""Iterations of the most recent escape walk (:func:`query_overlaps`,
+:func:`query_nearest` or :func:`query_ray`; a multiple of
+:data:`CHECK_EVERY` unless ``max_iters`` cut it)."""
+
+EXTRACTS = ("peel", "bitpeel", "topk", "scan", "none")
+"""The hit extractions of :func:`query_overlaps_sorted`."""
+
+_POL = Executor()            # the scans run on their tensors' device
 
 
 def aabb_overlap(lo_a, hi_a, lo_b, hi_b):
@@ -76,6 +88,15 @@ class LBvh:
     @property
     def num_leaves(self) -> int:
         return (self.lo.shape[0] + 1) // 2
+
+
+def _rank_any(codes: torch.Tensor, vals: torch.Tensor,
+              side: str) -> torch.Tensor:
+    """``searchsorted(codes, vals, side)`` as int32, for ``vals`` in any
+    order (the JAX package merges the two arrays by one packed sort, a TPU
+    workaround for its slow binary search)."""
+    return torch.searchsorted(codes.contiguous(), vals.contiguous(),
+                              right=side == "right").to(torch.int32)
 
 
 def _i32(n, device, fill=None):
@@ -310,6 +331,31 @@ def build_lbvh_complete(prim_lo: torch.Tensor, prim_hi: torch.Tensor,
                 scene_lo, extent, half_max)
 
 
+def _lockstep(step: Callable, carry: dict, outs: dict,
+              max_iters: Optional[int] = None) -> None:
+    """The escape walk's loop.  ``carry`` holds per-lane tensors, among
+    them ``lane`` (the lane's row in the outputs) and ``node`` (-1 once the
+    walk is over); every still-active lane advances one node per
+    ``step(carry) -> carry``.  Every :data:`CHECK_EVERY` steps the host
+    writes ``carry[k]`` into ``outs[k]`` at the lanes' rows and drops the
+    lanes that are done, so the loop syncs with the device once per that
+    many steps.  ``max_iters`` caps the steps of every lane (they start
+    together).  The number of steps run is kept in
+    :data:`LAST_WALK_STEPS`."""
+    global LAST_WALK_STEPS
+    steps = 0
+    cap = float("inf") if max_iters is None else max_iters
+    while carry["lane"].numel() and steps < cap:
+        for _ in range(int(min(CHECK_EVERY, cap - steps))):
+            carry = step(carry)
+            steps += 1
+        for k, o in outs.items():
+            o[carry["lane"]] = carry[k]
+        keep = carry["node"] >= 0
+        carry = {k: v[keep] for k, v in carry.items()}
+    LAST_WALK_STEPS = steps
+
+
 def query_overlaps(bvh: LBvh, q_lo: torch.Tensor, q_hi: torch.Tensor,
                    max_hits: int, valid: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -317,12 +363,10 @@ def query_overlaps(bvh: LBvh, q_lo: torch.Tensor, q_hi: torch.Tensor,
 
     Returns ``(hits [nq, max_hits]`` primitive ids in walk order, -1
     padded; ``counts [nq])``, the true counts (a hit list truncates, its
-    count never does).  All still-active queries step in lockstep; every
-    :data:`CHECK_EVERY` steps the host reads which are done and drops
-    them, so the loop syncs with the device once per that many steps.  The
-    number of steps run is kept in :data:`LAST_WALK_STEPS`.
+    count never does).  All still-active queries step in lockstep
+    (:func:`_lockstep`); the number of steps run is kept in
+    :data:`LAST_WALK_STEPS`.
     """
-    global LAST_WALK_STEPS
     nq = q_lo.shape[0]
     dev = q_lo.device
     hits = torch.full((nq * max_hits,), -1, dtype=torch.int32, device=dev)
@@ -331,33 +375,29 @@ def query_overlaps(bvh: LBvh, q_lo: torch.Tensor, q_hi: torch.Tensor,
         act = torch.arange(nq, device=dev)
     else:
         act = torch.nonzero(valid).flatten()
-    qlo, qhi = q_lo[act], q_hi[act]
-    node = torch.zeros(act.numel(), dtype=torch.int64, device=dev)
-    c = torch.zeros(act.numel(), dtype=torch.int32, device=dev)
     left, esc, prim_of = bvh.left, bvh.escape, bvh.leaf_prim
-    steps = 0
-    while act.numel():
-        for _ in range(CHECK_EVERY):
-            live = node >= 0
-            nd = torch.clamp(node, min=0)
-            ov = live & aabb_overlap(bvh.lo[nd], bvh.hi[nd], qlo, qhi)
-            lft = left[nd]
-            is_leaf = lft < 0
-            prim = prim_of[nd]
-            record = ov & is_leaf & (prim >= 0)
-            slot = act * max_hits + torch.clamp(c, max=max_hits - 1)
-            put = record & (c < max_hits)
-            hits[slot] = torch.where(put, prim, hits[slot])
-            c = c + record.to(torch.int32)
-            # descend if internal and overlapping, else escape
-            node = torch.where(live, torch.where(ov & ~is_leaf, lft,
-                                                 esc[nd]).long(), -1)
-            steps += 1
-        cnt[act] = c
-        keep = node >= 0
-        act, qlo, qhi, node, c = (act[keep], qlo[keep], qhi[keep],
-                                  node[keep], c[keep])
-    LAST_WALK_STEPS = steps
+
+    def step(w):
+        node = w["node"]
+        live = node >= 0
+        nd = torch.clamp(node, min=0)
+        ov = live & aabb_overlap(bvh.lo[nd], bvh.hi[nd], w["qlo"], w["qhi"])
+        lft = left[nd]
+        is_leaf = lft < 0
+        prim = prim_of[nd]
+        record = ov & is_leaf & (prim >= 0)
+        c = w["c"]
+        slot = w["lane"] * max_hits + torch.clamp(c, max=max_hits - 1)
+        hits[slot] = torch.where(record & (c < max_hits), prim, hits[slot])
+        # descend if internal and overlapping, else escape
+        node = torch.where(live, torch.where(ov & ~is_leaf, lft,
+                                             esc[nd]).long(), -1)
+        return dict(w, node=node, c=c + record.to(torch.int32))
+
+    _lockstep(step, dict(lane=act, node=torch.zeros_like(act),
+                         qlo=q_lo[act], qhi=q_hi[act],
+                         c=torch.zeros(act.numel(), dtype=torch.int32,
+                                       device=dev)), {"c": cnt})
     return hits.view(nq, max_hits), cnt
 
 
@@ -422,7 +462,8 @@ def _decompose(bvh, q_lo, q_hi, cells):
 def query_overlaps_sorted(bvh: LBvh, q_lo: torch.Tensor, q_hi: torch.Tensor,
                           max_hits: int, tile: int = 128, group: int = 128,
                           extract: str = "peel", decompose: bool = False,
-                          cells: int = 8, uniform_extent=None):
+                          cells: int = 8, compact: Optional[int] = None,
+                          uniform_extent=None):
     """AABB overlap query as a sorted banded tile join.
 
     Queries (or, with ``decompose``, each query's covering aligned cells)
@@ -431,17 +472,30 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: torch.Tensor, q_hi: torch.Tensor,
     the tile's smallest interval start, and certifies per entry that every
     leaf whose code lies in its interval is inside the window
     (``in_band``).  ``group`` tiles are joined per step.  ``extract`` is
-    ``"peel"`` (the first ``max_hits`` overlapping window lanes) or
-    ``"none"`` (counts only).
+    one of :data:`EXTRACTS`: ``"peel"``, ``"bitpeel"``, ``"topk"`` and
+    ``"scan"`` all give the first ``max_hits`` overlapping window lanes in
+    lane order (the JAX package's four strategies for the TPU; here one
+    extraction serves them, with no composite key and so without the
+    JAX peel's 31-bit limit); ``"none"`` gives counts only.  The tiles are independent, so
+    ``group`` only sets how many are joined at once (the JAX package
+    shrinks it to a divisor of the tile count).
 
     Returns ``(qid, hits [E, max_hits], counts [E], in_band [E])`` in
     sorted entry order.  With ``decompose`` the rows are entry-granular:
     combine by ``qid`` (counts add, in_band ANDs, hit sets union; cells
-    are disjoint).  ``uniform_extent``: every query box is ``centre +- r``;
-    pass the centres as ``q_lo`` (``q_hi`` is ignored) and ``r``.
+    are disjoint).  ``compact`` (decompose only, a multiple of ``tile``) is
+    a budget of live entries: the live cells sort to the front and only
+    the first ``compact`` entries are joined; when more are live, every
+    entry is flagged out of band and the whole call is void.  A query
+    whose live cells all fell past the budget then has no row at all, and
+    the combine above would read it as certified with count 0: so when
+    every row is flagged under ``compact``, treat the call as overflowed.  ``uniform_extent``: every query box is
+    ``centre +- r``; pass the centres as ``q_lo`` (``q_hi`` is ignored)
+    and ``r``.
     """
-    if extract not in ("peel", "none"):
-        raise ValueError(f"extract must be 'peel' or 'none', got {extract!r}")
+    if extract not in EXTRACTS:
+        raise ValueError(f"extract must be one of {EXTRACTS}, got "
+                         f"{extract!r}")
     n = bvh.num_leaves
     nq, dim = q_lo.shape
     dev = q_lo.device
@@ -463,6 +517,9 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: torch.Tensor, q_hi: torch.Tensor,
                              "sort operand; split batches beyond 2^26")
         R = cells
         m_lo, qidk, vflat = _decompose(bvh, q_lo, q_hi, R)
+        if compact is not None:
+            # live cells sort to the front; the budget slice keeps them
+            m_lo = torch.where(vflat, m_lo, INT32_MAX)
         nq = nq * R
     else:
         R = 1
@@ -471,14 +528,19 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: torch.Tensor, q_hi: torch.Tensor,
         m_hi = morton3d(_quant(q_hi + bvh.half_max, bvh.scene_lo,
                                bvh.scene_extent))
         qid0 = torch.arange(nq, dtype=torch.int32, device=dev)
+    if compact is not None:
+        if not decompose:
+            raise ValueError("compact requires decompose=True")
+        if compact % tile or compact > nq:
+            raise ValueError(f"compact budget {compact} must be a multiple "
+                             f"of tile <= {nq}")
 
     T = tile
     if nq % T:
         raise ValueError("query count must be a multiple of tile")
-    ntiles = nq // T
-    G = min(group, ntiles)
-    while ntiles % G:
-        G -= 1
+    ne = nq if compact is None else compact
+    ntiles = ne // T
+    G = min(group, ntiles)          # the last group may be smaller
 
     # entries sorted by interval start, the query columns riding along;
     # decomposed entries that are invalid get boxes that overlap nothing
@@ -492,7 +554,6 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: torch.Tensor, q_hi: torch.Tensor,
     if decompose:
         qcols = [torch.where(vflat, c.repeat(R), f)
                  for c, f in zip(qcols, fills)]
-    if decompose:
         # JAX leaves the order of equal interval starts open (an unstable
         # sort).  Here empty entries come first, then valid ones by cell
         # level and qid: a wide interval lands in the later tile, whose
@@ -500,7 +561,7 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: torch.Tensor, q_hi: torch.Tensor,
         # gives the same order.
         tie = (((qidk & 1) << 30) | (((qidk >> 1) & 15) << 26)
                | (qidk >> 5))
-        perm = torch.argsort((m_lo.to(torch.int64) << 32) | tie)
+        perm = torch.argsort((m_lo.to(torch.int64) << 32) | tie)[:ne]
     else:
         perm = torch.argsort(m_lo, stable=True)
     sm_lo = m_lo[perm]
@@ -537,6 +598,8 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: torch.Tensor, q_hi: torch.Tensor,
     right_ok = ((w0 + 3 * TL >= n)[:, None]
                 | (edge_r[:, None] > sm_hi.view(ntiles, T))).view(-1)
     in_band = (left_ok & right_ok) | (sm_lo > sm_hi)
+    if compact is not None:
+        in_band = in_band & (vflat.sum() <= compact)
 
     blk = (w0 // TL).long()[:, None] + torch.arange(3, device=dev)[None]
 
@@ -554,16 +617,8 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: torch.Tensor, q_hi: torch.Tensor,
     qh = [c.view(ntiles, T) for c in sq_hi]
     lo_t, hi_t = sm_lo.view(ntiles, T), sm_hi.view(ntiles, T)
 
-    if extract == "peel":
-        prim_bits = max(1, int(n - 1).bit_length())
-        lane_bits = int(3 * TL - 1).bit_length()
-        if prim_bits + lane_bits > 31:
-            raise ValueError(
-                f"peel extract: {n} prims x {3 * TL}-lane window exceeds "
-                f"the 31-bit composite key; use a smaller tile")
-        lane_key = (torch.arange(3 * TL, dtype=torch.int32, device=dev)
-                    << prim_bits)
-        kpeel = min(max_hits, 3 * TL)
+    lanes = torch.arange(3 * TL, dtype=torch.int32, device=dev)
+    kpeel = min(max_hits, 3 * TL)
     cnt = torch.empty((ntiles, T), dtype=torch.int32, device=dev)
     hits = torch.full((ntiles, T, max_hits), -1, dtype=torch.int32,
                       device=dev)
@@ -577,15 +632,14 @@ def query_overlaps_sorted(bvh: LBvh, q_lo: torch.Tensor, q_hi: torch.Tensor,
             ov = (ov & (wh[d][t][:, None, :] >= ql[d][t][:, :, None])
                   & (qh[d][t][:, :, None] >= wl[d][t][:, None, :]))
         cnt[t] = ov.sum(-1, dtype=torch.int32)
-        if extract == "peel":
-            # the first max_hits overlapping lanes, in lane order, by the
-            # smallest composite (lane << prim_bits) | prim keys
-            comp = torch.where(ov, lane_key | torch.clamp(wp[t], min=0)
-                               [:, None, :], INT32_MAX)
-            m = torch.topk(comp, kpeel, dim=-1, largest=False).values
-            hits[t, :, :kpeel] = torch.where(
-                m < INT32_MAX, m & ((1 << prim_bits) - 1), -1)
-    return (qid, hits.view(nq, max_hits), cnt.view(nq), in_band)
+        if extract != "none":
+            # the first max_hits overlapping lanes, in lane order
+            key = torch.where(ov, lanes, 3 * TL)
+            first = torch.topk(key, kpeel, dim=-1, largest=False).values
+            prim = torch.gather(wp[t][:, None, :].expand(-1, T, -1), 2,
+                                first.clamp_max(3 * TL - 1).long())
+            hits[t, :, :kpeel] = torch.where(first < 3 * TL, prim, -1)
+    return (qid, hits.view(ne, max_hits), cnt.view(ne), in_band)
 
 
 def query_overlaps_exact(bvh: LBvh, q_lo: torch.Tensor, q_hi: torch.Tensor,
@@ -651,3 +705,219 @@ def query_overlaps_exact(bvh: LBvh, q_lo: torch.Tensor, q_hi: torch.Tensor,
                                            0)])
     hits_rows = torch.cat([hits_e, torch.where(rvalid[:, None], w_hits, -1)])
     return qid_rows, hits_rows, cnt_q[:nq0], overflow
+
+
+def query_nearest_sorted(bvh: LBvh, points: torch.Tensor,
+                         prim_points: torch.Tensor, tile: int = 128,
+                         group: int = 128):
+    """Nearest point primitive of each query as a sorted banded scan, with
+    an a-posteriori certificate.
+
+    Queries sort by morton code onto the leaf diagonal; each tile of
+    ``tile`` queries takes the squared distances to a 3-tile window of
+    leaf points (the leaf tiles before, at and after its own position) and
+    their argmin, ``group`` tiles per step.  Any primitive closer than the
+    found distance ``rb`` has a code in ``[m(q - rb), m(q + rb)]``, so when
+    that leaf interval lies inside the window the answer is exact
+    (``in_band``); answer the rest with :func:`query_nearest`.
+
+    ``prim_points [n_prims, dim]`` are the primitive coordinates in
+    primitive order.  Returns ``(qid, best_prim, best_d2, in_band)`` in
+    sorted-query order.
+    """
+    n = bvh.num_leaves
+    nq, dim = points.shape
+    dev = points.device
+    T = tile
+    if nq % T:
+        raise ValueError("query count must be a multiple of tile")
+    ntiles = nq // T
+    G = min(group, ntiles)          # the last group may be smaller
+    leaf_prim = bvh.leaf_prim[n - 1:]
+    lpts = torch.where((leaf_prim >= 0)[:, None],
+                       prim_points[leaf_prim.clamp_min(0).long()], BIG)
+
+    def mcode(x):
+        return morton3d(_quant(x, bvh.scene_lo, bvh.scene_extent))
+
+    perm = torch.argsort(mcode(points), stable=True)
+    qid = perm.to(torch.int32)
+    sp = points[perm]
+
+    TL = -(-n // ntiles)
+    lt = torch.cat([lpts, lpts.new_full((ntiles * TL - n, dim), BIG)])
+    lt = lt.view(ntiles, TL, dim)
+    fill = torch.full_like(lt[:1], BIG)
+    wpts = torch.cat([torch.cat([fill, lt[:-1]]), lt,
+                      torch.cat([lt[1:], fill])], dim=1)   # [ntiles, 3TL, dim]
+    sq = sp.view(ntiles, T, dim)
+    best = torch.empty((ntiles, T), dtype=points.dtype, device=dev)
+    lane = torch.empty((ntiles, T), dtype=torch.int64, device=dev)
+    for s in range(0, ntiles, G):
+        w, q = wpts[s:s + G], sq[s:s + G]
+        d2 = torch.zeros((w.shape[0], 3 * TL, T), dtype=points.dtype,
+                         device=dev)
+        for d in range(dim):
+            diff = w[:, :, None, d] - q[:, None, :, d]
+            d2 = d2 + diff * diff
+        best[s:s + G] = d2.amin(1)
+        lane[s:s + G] = torch.argmin(d2, 1)       # the first minimum
+    best = best.view(nq)
+    found = best < 1e37
+    tile_of = torch.arange(nq, device=dev) // T
+    leaf = torch.clamp((tile_of - 1) * TL + lane.view(nq), 0, n - 1)
+    best_prim = torch.where(found, leaf_prim[leaf], -1)
+
+    # the certificate: the whole candidate interval inside the window
+    rb = sqrt_rn(torch.where(found, best, 0.0))[:, None]
+    s = _rank_any(bvh.codes, mcode(sp - rb), "left")
+    e = _rank_any(bvh.codes, mcode(sp + rb), "right")
+    in_band = found & (s >= (tile_of - 1) * TL) & (e <= (tile_of + 2) * TL)
+    return qid, best_prim, best, in_band
+
+
+def query_nearest(bvh: LBvh, points: torch.Tensor, prim_dist: Callable,
+                  max_iters: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest primitive of each point by the escape walk, pruned by each
+    node box's distance.
+
+    ``prim_dist(ids [m], pts [m, dim]) -> [m]`` is batched: the exact
+    distance from each point to its primitive, in the same linear units as
+    space (the box bound is a linear norm).  It is called on every active
+    lane each step, with ids clamped to 0 where the lane is at no valid
+    leaf, and those lanes' values are discarded.  (The JAX package's
+    ``prim_dist(id, p)`` is a scalar function under ``vmap``.)
+    ``max_iters`` caps the walk steps per query, by default ``2n - 1``
+    (every node); a smaller cap trades exactness for time.  Returns
+    ``(ids, dists)``, -1 and inf where nothing was found.
+    """
+    if max_iters is None:
+        max_iters = bvh.lo.shape[0]
+    nq = points.shape[0]
+    dev = points.device
+    ids = torch.full((nq,), -1, dtype=torch.int32, device=dev)
+    dist = torch.full((nq,), float("inf"), dtype=points.dtype, device=dev)
+    left, esc, prim_of = bvh.left, bvh.escape, bvh.leaf_prim
+
+    def step(w):
+        node, p, bd = w["node"], w["p"], w["bd"]
+        live = node >= 0
+        nd = torch.clamp(node, min=0)
+        g = (torch.clamp(bvh.lo[nd] - p, min=0.0)
+             + torch.clamp(p - bvh.hi[nd], min=0.0))
+        lb = torch.sqrt((g[:, 0] * g[:, 0] + g[:, 1] * g[:, 1])
+                        + g[:, 2] * g[:, 2])
+        prune = lb >= bd
+        lft = left[nd]
+        is_leaf = lft < 0
+        prim = prim_of[nd]
+        d = torch.where(live & is_leaf & (prim >= 0) & ~prune,
+                        prim_dist(prim.clamp_min(0), p), float("inf"))
+        better = d < bd
+        node = torch.where(live, torch.where(~prune & ~is_leaf, lft,
+                                             esc[nd]).long(), -1)
+        return dict(w, node=node, bd=torch.where(better, d, bd),
+                    bid=torch.where(better, prim, w["bid"]))
+
+    lanes = torch.arange(nq, device=dev)
+    _lockstep(step, dict(lane=lanes, node=torch.zeros_like(lanes), p=points,
+                         bd=dist.clone(), bid=ids.clone()),
+              {"bd": dist, "bid": ids}, max_iters)
+    return ids, dist
+
+
+def query_ray(bvh: LBvh, origins: torch.Tensor, dirs: torch.Tensor,
+              prim_hit: Callable, t_max: float = float("inf"),
+              max_iters: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Closest hit of each ray by the escape walk, pruned by the slab test
+    against the best ``t`` so far.
+
+    ``prim_hit(ids [m], origins [m, dim], dirs [m, dim]) -> t [m]`` is
+    batched (inf on a miss); it is called on every active lane each step,
+    with ids clamped to 0 where the lane is at no valid leaf, and those
+    lanes' values are discarded.  (The JAX package's ``prim_hit(id, o, d)``
+    is a scalar function under ``vmap``.)  ``max_iters`` as in
+    :func:`query_nearest`.  Returns ``(ids, t)``: -1 and ``t_max`` where no
+    primitive was hit before ``t_max``.
+    """
+    if max_iters is None:
+        max_iters = bvh.lo.shape[0]
+    nq = origins.shape[0]
+    dev = origins.device
+    ids = torch.full((nq,), -1, dtype=torch.int32, device=dev)
+    t = torch.full((nq,), t_max, dtype=origins.dtype, device=dev)
+    left, esc, prim_of = bvh.left, bvh.escape, bvh.leaf_prim
+    tiny = torch.where(dirs < 0, -1e-12, 1e-12)
+    inv = div_rn(1.0, torch.where(dirs.abs() < 1e-12, tiny, dirs))
+
+    def step(w):
+        node, o, bt = w["node"], w["o"], w["bt"]
+        live = node >= 0
+        nd = torch.clamp(node, min=0)
+        t0 = (bvh.lo[nd] - o) * w["inv"]
+        t1 = (bvh.hi[nd] - o) * w["inv"]
+        tmin = torch.minimum(t0, t1).amax(-1)
+        tmax = torch.maximum(t0, t1).amin(-1)
+        hit = live & (tmax >= torch.clamp(tmin, min=0.0)) & (tmin < bt)
+        lft = left[nd]
+        is_leaf = lft < 0
+        prim = prim_of[nd]
+        th = torch.where(hit & is_leaf & (prim >= 0),
+                         prim_hit(prim.clamp_min(0), o, w["d"]),
+                         float("inf"))
+        better = th < bt
+        node = torch.where(live, torch.where(hit & ~is_leaf, lft,
+                                             esc[nd]).long(), -1)
+        return dict(w, node=node, bt=torch.where(better, th, bt),
+                    bid=torch.where(better, prim, w["bid"]))
+
+    lanes = torch.arange(nq, device=dev)
+    _lockstep(step, dict(lane=lanes, node=torch.zeros_like(lanes), o=origins,
+                         d=dirs, inv=inv, bt=t.clone(), bid=ids.clone()),
+              {"bt": t, "bid": ids}, max_iters)
+    return ids, t
+
+
+@dataclasses.dataclass(frozen=True)
+class BvttFront:
+    """A retained set of candidate (query, primitive) pairs: rebuilt from
+    an overlap walk, re-validated cheaply between rebuilds (the reference's
+    ``Bvtt`` front).  Padded pair arrays (-1 past ``count``)."""
+
+    qid: torch.Tensor     # [cap] int32 query index, -1 padding
+    pid: torch.Tensor     # [cap] int32 primitive index
+    count: torch.Tensor   # 0-d int32: pairs kept, at most cap
+
+    @property
+    def capacity(self) -> int:
+        return self.qid.shape[0]
+
+    @staticmethod
+    def rebuild(bvh: LBvh, q_lo: torch.Tensor, q_hi: torch.Tensor,
+                max_hits_per_query: int, capacity: int) -> "BvttFront":
+        """Every pair of :func:`query_overlaps` (``max_hits_per_query`` per
+        query), compacted in (query, walk) order by a prefix sum, the scan
+        kernel on the card.  Past ``capacity`` the first ``capacity`` pairs
+        are kept."""
+        hits, _ = query_overlaps(bvh, q_lo, q_hi, max_hits_per_query)
+        nq, mh = hits.shape
+        dev = hits.device
+        qid = torch.arange(nq, dtype=torch.int32,
+                           device=dev).repeat_interleave(mh)
+        pid = hits.reshape(-1)
+        ok = pid >= 0
+        pos = inclusive_scan(_POL, ok.to(torch.int32)) - 1
+        dst = torch.where(ok & (pos < capacity), pos, capacity).long()
+        qout = _i32(capacity + 1, dev, -1).scatter_(0, dst, qid)
+        pout = _i32(capacity + 1, dev, -1).scatter_(0, dst, pid)
+        return BvttFront(qout[:capacity], pout[:capacity],
+                         torch.clamp(pos[-1] + 1, max=capacity))
+
+    def refresh(self, prim_lo, prim_hi, q_lo, q_hi) -> torch.Tensor:
+        """Mask of the pairs that still overlap under updated boxes."""
+        qs = self.qid.clamp_min(0).long()
+        ps = self.pid.clamp_min(0).long()
+        return (self.qid >= 0) & aabb_overlap(prim_lo[ps], prim_hi[ps],
+                                              q_lo[qs], q_hi[qs])

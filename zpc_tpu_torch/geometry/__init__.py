@@ -1,5 +1,6 @@
-"""Level sets, colliders, samplers, sparse grids, distances and contact
-(counterpart of ``zpc_tpu/geometry``).
+"""Level sets, colliders, samplers, sparse grids and sparse level sets,
+distances and contact, robust predicates and cells, meshes and marching
+tetrahedra (counterpart of ``zpc_tpu/geometry``).
 
 The names of ``zpc_tpu.geometry`` that the port carries are exported here
 and imported on first use."""
@@ -11,7 +12,13 @@ _EXPORTS = {
                   "Torus", "TransformedLevelSet", "UnionLevelSet",
                   "IntersectionLevelSet", "ComplementLevelSet"],
     ".collider": ["Collider", "ColliderType", "resolve_boundaries"],
+    ".marching": ["TriSoup", "marching_tets", "surface_from_levelset"],
     ".sparse_grid": ["SparseGrid", "sparse_grid", "neighbor_offsets"],
+    ".sparse_levelset": ["SparseLevelSet", "levelset_from_analytic",
+                         "levelset_from_points", "flood_fill", "redistance"],
+    ".mesh": ["TriMesh", "TetMesh", "tri_normals", "vertex_normals",
+              "tet_surface", "mesh_aabbs", "spray_points", "tet_volumes"],
+    ".predicates": ["orient2d", "orient3d", "incircle", "insphere"],
     ".ccd_tight": ["CCDResult", "vertex_face_ccd", "edge_edge_ccd_tight"],
     ".dihedral": ["dihedral_angle", "dihedral_angle_gradient",
                   "dihedral_angle_hessian", "hinge_bending_energy",

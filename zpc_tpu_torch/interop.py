@@ -7,8 +7,10 @@ family in 2-D and 3-D (every analytic level set, every elastic and
 plasticity model, B-spline orders 1-3, FLIP, elastic, plastic and fluid
 states and bin states, configs with the incremental rebin), the LBVH,
 the implicit step's mesh contact (``MeshContact``, ``ContactSet``), cloth
-(``ClothSim`` with its incidence tables and grid stencil) and tet FEM
-(``FemSim`` with its elastic model); anything else raises.
+(``ClothSim`` with its incidence tables and grid stencil), tet FEM
+(``FemSim`` with its elastic model), sparse level sets, triangle and tet
+meshes, the sweep structure ``Bvs``, pair fronts (``BvttFront``) and
+``BigInt``; anything else raises.
 """
 
 from __future__ import annotations
@@ -19,11 +21,15 @@ import numpy as np
 import torch
 
 from .containers.block_table import BlockTable
-from .containers.bvh import LBvh
+from .containers.bvh import BvttFront, LBvh
+from .containers.bvs import Bvs
 from .containers.structured import StructuredField
 from .geometry.collider import Collider, ColliderType
 from .geometry import levelset as ls_mod
+from .geometry.mesh import TetMesh, TriMesh
 from .geometry.sparse_grid import SparseGrid
+from .geometry.sparse_levelset import SparseLevelSet
+from .math.bigint import BigInt
 from .math.transform import Transform
 from .models import constitutive, plasticity
 from .sim.cloth import ClothSim, ClothStencil
@@ -35,7 +41,9 @@ from .sim.mpm_binned2 import BinnedConfig2, BinState
 __all__ = ["sim_from_jax", "config_from_jax", "state_from_jax",
            "binstate_from_jax", "state_to_numpy", "lbvh_from_jax",
            "lbvh_to_numpy", "mesh_contact_from_jax", "contact_set_from_jax",
-           "cloth_from_jax", "fem_from_jax"]
+           "cloth_from_jax", "fem_from_jax", "sparse_levelset_from_jax",
+           "trimesh_from_jax", "tetmesh_from_jax", "bvs_from_jax",
+           "bvtt_front_from_jax", "bigint_from_jax"]
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -46,8 +54,10 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 def _levelset_from_jax(ls, device):
     """Any analytic level set of ``zpc_tpu.geometry.levelset``, field for
     field: arrays become tensors, ints (``orient``) stay, wrapped sets
-    convert in turn."""
+    convert in turn; a ``SparseLevelSet`` by :func:`sparse_levelset_from_jax`."""
     kind = type(ls).__name__
+    if kind == "SparseLevelSet":
+        return sparse_levelset_from_jax(ls, device)
     cls = getattr(ls_mod, kind, None)
     if cls is None or kind not in ls_mod.__all__ or kind == "LevelSet":
         raise NotImplementedError(f"level set {kind} is not ported")
@@ -258,3 +268,41 @@ def fem_from_jax(sim, device: torch.device) -> FemSim:
                    _tensor(getattr(sim, f.name), device))
           for f in dataclasses.fields(FemSim)}
     return FemSim(**kw)
+
+
+def sparse_levelset_from_jax(ls, device: torch.device) -> SparseLevelSet:
+    """``zpc_tpu.geometry.sparse_levelset.SparseLevelSet`` ->
+    :class:`SparseLevelSet`: its grid (table, payloads, transform) and its
+    background."""
+    return SparseLevelSet(_grid_from_jax(ls.grid, device),
+                          _tensor(ls.background, device))
+
+
+def trimesh_from_jax(mesh, device: torch.device) -> TriMesh:
+    """``zpc_tpu.geometry.mesh.TriMesh`` -> :class:`TriMesh`."""
+    return TriMesh(_tensor(mesh.vertices, device), _tensor(mesh.faces, device))
+
+
+def tetmesh_from_jax(mesh, device: torch.device) -> TetMesh:
+    """``zpc_tpu.geometry.mesh.TetMesh`` -> :class:`TetMesh`."""
+    return TetMesh(_tensor(mesh.vertices, device),
+                   _tensor(mesh.elements, device))
+
+
+def bvs_from_jax(bvs, device: torch.device) -> Bvs:
+    """``zpc_tpu.containers.bvs.Bvs`` -> :class:`Bvs` (the axis as it
+    is)."""
+    return Bvs(_tensor(bvs.lo, device), _tensor(bvs.hi, device),
+               _tensor(bvs.prim, device), _tensor(bvs.max_extent, device),
+               int(bvs.axis))
+
+
+def bvtt_front_from_jax(front, device: torch.device) -> BvttFront:
+    """``zpc_tpu.containers.bvh.BvttFront`` -> :class:`BvttFront`."""
+    return BvttFront(_tensor(front.qid, device), _tensor(front.pid, device),
+                     _tensor(front.count, device))
+
+
+def bigint_from_jax(b, device: torch.device) -> BigInt:
+    """``zpc_tpu.math.bigint.BigInt`` -> :class:`BigInt`, limb for limb."""
+    return BigInt(_tensor(b.sign, device), _tensor(b.mag, device))

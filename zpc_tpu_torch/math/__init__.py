@@ -1,5 +1,6 @@
 """Small-tensor math, B-splines, transforms, morton bit tricks, hashes and
-samplers, CSR matrices and solvers (counterpart of ``zpc_tpu/math``).
+samplers, CSR matrices and solvers, and exact wide integers and fractions
+(counterpart of ``zpc_tpu/math``).
 
 The names of ``zpc_tpu.math`` that the port carries are exported here and
 imported on first use (the parallel primitives import ``math.bits``, and
@@ -25,6 +26,7 @@ _EXPORTS = {
                    "rotation_y", "rotation_z"],
     ".bits": ["morton3d", "morton2d", "clz32", "common_prefix_length",
               "next_pow2", "expand_bits_3d"],
+    ".bigint": ["BigInt", "bigint", "bigint_gcd", "RationalW", "rational_w"],
 }
 _WHERE = {name: mod for mod, names in _EXPORTS.items() for name in names}
 __all__ = list(_WHERE)

@@ -9,7 +9,8 @@ bench_fluid``, :func:`materials` the four material scenes of
 broad-phase scene of ``benchmarks/run_all.py:bench_bvh``,
 :func:`implicit_block` and :func:`implicit_config` the implicit-MPM scene
 of ``bench_implicit``, :func:`terrain_mesh` its mesh-contact heightfield
-(``benchmarks/run_all.py:_terrain_mesh``), :func:`floor_mesh` the
+(``benchmarks/run_all.py:_terrain_mesh``) and :func:`terrain_trimesh` the
+same heightfield as a mesh of shared vertices, :func:`floor_mesh` the
 two-triangle floor of ``tests/test_contact_implicit.py`` and
 :func:`contact_block` the two together, :func:`poisson_rhs` with
 :func:`laplace` the CG Poisson problem of ``bench_poisson``,
@@ -36,6 +37,7 @@ import torch
 from .core.executor import cuda_device
 from .geometry.collider import Collider, ColliderType
 from .geometry.levelset import ComplementLevelSet, Cuboid, HalfSpace
+from .geometry.mesh import TriMesh
 from .models.cfl import timestep_linear_elasticity
 from .models.constitutive import (EquationOfState, FixedCorotated,
                                   NeoHookean, StvkWithHencky,
@@ -234,6 +236,26 @@ def terrain_mesh(res: int, device: torch.device, y0: float = 0.56,
     d = V[:-1, 1:].reshape(-1, 3)
     tri = np.concatenate([np.stack([a, b, c], 1), np.stack([a, c, d], 1)])
     return torch.from_numpy(tri).to(device)
+
+
+def terrain_trimesh(res: int, device: torch.device, y0: float = 0.56,
+                    amp: float = 0.02) -> TriMesh:
+    """:func:`terrain_mesh`'s heightfield as a :class:`TriMesh`: the
+    ``(res + 1)^2`` shared vertices (vertex ``i (res + 1) + j`` at
+    ``x_i, z_j``) and ``2 res^2`` faces in :func:`terrain_mesh`'s order,
+    so ``vertices[faces]`` is its triangle array."""
+    xs = np.linspace(0.0, 1.0, res + 1)
+    X, Z = np.meshgrid(xs, xs, indexing="ij")
+    Y = y0 + amp * np.sin(6.2832 * X) * np.cos(6.2832 * Z)
+    V = np.stack([X, Y, Z], -1).astype(np.float32).reshape(-1, 3)
+    idx = np.arange((res + 1) ** 2).reshape(res + 1, res + 1)
+    a = idx[:-1, :-1].reshape(-1)
+    b = idx[1:, :-1].reshape(-1)
+    c = idx[1:, 1:].reshape(-1)
+    d = idx[:-1, 1:].reshape(-1)
+    f = np.concatenate([np.stack([a, b, c], 1), np.stack([a, c, d], 1)])
+    return TriMesh(torch.from_numpy(V).to(device),
+                   torch.from_numpy(f.astype(np.int32)).to(device))
 
 
 def floor_mesh(y: float, lo: float, hi: float,
