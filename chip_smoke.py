@@ -2,7 +2,7 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-Ten paths run at full width: the explicit-MPM elastic block, the LBVH
+Thirteen paths run at full width: the explicit-MPM elastic block, the LBVH
 broad phase with its query family, the weakly compressible dam break and
 its surface, the implicit-MPM block
 (BASELINE config 5 without contact), the same block over a mesh with IPC
@@ -11,7 +11,10 @@ bench's two heightfields), the README's Quick start through ``Scene`` and
 ``simulate`` with bgeo frames and checkpoints, examples/mpm2d.py's
 discs in 2-D at a user's scale, the bench's two-layer self-contact cloth
 at 8,192 and 131,072 vertices, a 33^3 tet FEM block and ray and nearest
-queries over config 5's 100,352-triangle heightfield; the four
+queries over config 5's 100,352-triangle heightfield, the README scene
+again over an adaptive-grid ground, examples/mpm_block.py's steps with
+the port's timers, trace, .vdb export and host ops, and its sharded and
+domain-decomposed steps on one NCCL rank; the four
 materials of examples/materials.py run at their own size, the CG Poisson
 solve of
 BASELINE config 2 at its bench size, the parallel primitives of BASELINE
@@ -243,18 +246,46 @@ caught):
    bit, their signs against an exact oracle on 2,048; BigInt and
    RationalW arithmetic limb for limb; the cells' tests on lattice and
    random batches.  It runs, untimed, beside phase 23's CPU worker, after
-   phases 22 and 25.
+   phases 22 and 25, and before phase 36b;
+36. the adaptive grid: (a, after phase 34) card against CPU: 65,536 unique leaf cells in
+   [-256, 256)^3 (negative coordinates), the three levels equal, probe at
+   262,144 points bit for bit, sample, sample_gradient and
+   sample_staggered within 1e-5 of the largest magnitude,
+   update_leaf_values and activate_leaves equal, their overflow flags
+   equal (a write to an inactive cell and an activation past the
+   capacity raise them); (b, beside phase 23's CPU worker, after phase
+   35: the card would wait on the worker otherwise) phase 21's scene
+   through the same
+   ``simulate`` over ``AdaptiveGridLevelSet(adaptive_from_sdf(ground,
+   dx=1/128, [0, 1]^3, band=0.1))``: x, v, F within TOL plus twice the
+   card's spread (the analytic run with its particles reversed) of phase
+   21's analytic ground, through the impact; ms/step beside phase 21's
+   and beside the reversed run's in the same window;
+37. examples/mpm_block.py's path (262,144 particles, dx = 1/128, 50
+   explicit_steps) timed with the port's ``Timer`` and ``bench``, 3 steps
+   in ``trace`` (CUDA kernel events in the Chrome trace),
+   ``memory_stats``, ``save_vdb(grid, ["m", "v"])`` read back by
+   ``load_vdb_grids`` bit for bit, phase 36's ground through
+   ``adaptive_to_vdb_grid`` -> .vdb -> ``vdb_grid_to_adaptive`` (probes
+   equal), the host ops built with g++ (``morton3d_host`` = the card's
+   morton keys), a log file through ``utils/logger``;
+38. NCCL at world size 1 (a ``file://`` rendezvous with a timeout):
+   ``shard_state`` + ``explicit_step_sharded`` and ``make_dd_state`` +
+   ``explicit_step_dd`` for 50 steps each over phase 37's scene, no
+   overflow, each within TOL plus twice the card's spread of phase 37's
+   explicit_step run; ms/step of each beside it.
 
 The scan's launches in the kernel record are those of phases 4, 10, 12,
-13, 16, 19, 20, 21, 24, 26 and 32-34, NSE's those of phases 7 and 32-34
-(a line before gives them per path, with phases 27-31's, which launch
-neither kernel).  The last two lines are the kernel record and the
+13, 16, 19, 20, 21, 24, 26, 32-34 and 36-38, NSE's those of phases 7 and
+32-34 (a line before gives them per path, with phases 27-31's, which
+launch neither kernel).  The last two lines are the kernel record and the
 contract line ``{"ok": true, "device": {...}}``.
 """
 
 import concurrent.futures
 import contextlib
 import dataclasses
+import datetime
 import importlib
 import json
 import multiprocessing
@@ -270,6 +301,7 @@ sys.path.insert(0, ROOT)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import (  # noqa: E402
     ProfilerActivity, profile, record_function)
@@ -309,6 +341,16 @@ from zpc_tpu_torch.sim import mpm as mpm_mod  # noqa: E402
 from zpc_tpu_torch.sim import mpm_binned2 as b2  # noqa: E402
 from zpc_tpu_torch.sim import runner  # noqa: E402
 from zpc_tpu_torch.utils import io as io_mod  # noqa: E402
+from zpc_tpu_torch.geometry import adaptive_grid as ag_mod  # noqa: E402
+from zpc_tpu_torch.geometry import vdb_bridge  # noqa: E402
+from zpc_tpu_torch.math import bits  # noqa: E402
+from zpc_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from zpc_tpu_torch.sim import distributed as dist_mod  # noqa: E402
+from zpc_tpu_torch.sim import domain_decomp as dd_mod  # noqa: E402
+from zpc_tpu_torch.utils import logger as log_mod  # noqa: E402
+from zpc_tpu_torch.utils import native  # noqa: E402
+from zpc_tpu_torch.utils import profile as prof_mod  # noqa: E402
+from zpc_tpu_torch.utils import vdb as vdb_mod  # noqa: E402
 
 # zpc_tpu_torch.math exports a function named bigint over its submodule
 bigint_mod = importlib.import_module("zpc_tpu_torch.math.bigint")
@@ -404,6 +446,15 @@ N_FEM, FEM_STEPS, FEM_DT, FEM_CMP = 33, 40, 0.01, 5
 # geometry's batches (the exact oracle runs on the first N_EXACT)
 N_SAMPLE, N_FRONT, N_BVS, N_RAYS = 2_048, 65_536, 65_536, 1_048_576
 N_PRED, N_EXACT, N_BIG = 65_536, 2_048, 4_096
+# the adaptive grid card against CPU: 65,536 unique leaf cells in
+# [-256, 256)^3 (58,039 leaf blocks) queried at 262,144 points, capacities
+# that hold an activation of 4,096 far cells and not one of 16,384 spread
+# cells; samples held within AG_TOL of the largest magnitude (fp32 sums of
+# 8 products); the README scene's adaptive ground (band 0.1 covers y in
+# [0, 0.15)); examples/mpm_block.py's 50 steps for phases 37-38
+AG_CELLS, AG_HALF, AG_DX, AG_QUERIES = 65_536, 256, 1.0 / 128, 262_144
+AG_CAPS, AG_TOL, AG_BAND = [65_536, 8_192, 128], 1e-5, 0.1
+IO_STEPS = 50
 HBM_BYTES_PER_MS = 3.35e12 / 1e3     # H100 SXM HBM3 rate (data sheet)
 _WINDOW = "timed calls"               # the profiler window of device_split
 _T0 = time.perf_counter()             # the phases print their start time
@@ -2490,7 +2541,9 @@ def readme_path(dev, card, tmp):
               f"{'with' if io_on else 'without'} frames and checkpoints: "
               f"{ms:.4f} ms/step = {n / ms / 1e3:.4f} M particle-steps/s "
               f"({card})", flush=True)
-    return sim, st, dt, launches
+    # the analytic ground's final state and ms/step, for phase 36
+    final = {k: out.particles[k][:n].cpu() for k in TOL}
+    return sim, st, dt, launches, final, ms
 
 
 def _zeroed(obj):
@@ -3824,6 +3877,346 @@ def robust_geometry(dev, card):
                     f"CPU's bit for bit")
 
 
+# -- phases 36-38: the adaptive grid, I/O and tooling, the multi-device
+# steps at world size 1
+
+def _adaptive_queries(g, x):
+    """probe, sample, sample_gradient and sample_staggered of ``g`` at
+    ``x``, with their seconds (between CUDA events on the card)."""
+    out, secs = {}, {}
+    for name in ("probe", "sample", "sample_gradient", "sample_staggered"):
+        fn = getattr(g, name)
+        out[name], secs[name] = _event_seconds(lambda: fn(x))
+    return out, secs
+
+
+def _same_adaptive(got, ref, what):
+    """Two AdaptiveGrids with the same levels, bit for bit."""
+    for l, (a, b) in enumerate(zip(got.levels, ref.levels, strict=True)):
+        for name, u, v in (("keys", a.table.keys, b.table.keys),
+                           ("count", a.table.count, b.table.count),
+                           ("value", a.value, b.value),
+                           ("child", a.child, b.child)):
+            _same(u, v.cpu(), f"{what}: level {l} {name}")
+
+
+def _close_abs(g, c, tol, what):
+    err = (g.cpu() - c).abs().max().item()
+    check(err <= tol, f"{what}: max abs diff {err:.3g} <= {tol:.3g}")
+
+
+def adaptive_card_vs_cpu(dev, card):
+    """Phase 36a: the adaptive grid's build, queries, writes and
+    activation on the card against the CPU port."""
+    rng = np.random.default_rng(36)
+    cells = np.unique(rng.integers(-AG_HALF, AG_HALF, (AG_CELLS * 9 // 8, 3)
+                                   ).astype(np.int32), axis=0)
+    cells = cells[rng.permutation(len(cells))[:AG_CELLS]]
+    vals = rng.standard_normal(AG_CELLS).astype(np.float32)
+    x = np.concatenate([
+        (cells[rng.integers(0, AG_CELLS, AG_QUERIES // 2)] + 0.5) * AG_DX,
+        rng.uniform(-AG_HALF * AG_DX, AG_HALF * AG_DX,
+                    (AG_QUERIES // 2, 3))]).astype(np.float32)
+    far = rng.integers(AG_HALF + 64, AG_HALF + 160, (4_096, 3)).astype(
+        np.int32)
+    crowd = rng.integers(-4 * AG_HALF, 4 * AG_HALF, (16_384, 3)).astype(
+        np.int32)
+    kw = dict(dx=AG_DX, capacities=AG_CAPS, background=-1.0)
+    res = []
+    for where in (torch.device("cpu"), dev):
+        t = {k: torch.from_numpy(v).to(where) for k, v in
+             (("cells", cells), ("vals", vals), ("x", x), ("far", far),
+              ("crowd", crowd))}
+        g, sec = _event_seconds(lambda: ag_mod.adaptive_grid_from_leaves(
+            t["cells"], t["vals"], **kw))
+        q, qsec = _adaptive_queries(g, t["x"])
+        upd, ovf = g.update_leaf_values(t["cells"], 2.0 * t["vals"] + 1.0)
+        _, miss = g.update_leaf_values(t["far"][:1], t["vals"][:1])
+        act, aovf = g.activate_leaves(t["far"])
+        _, cap_ovf = g.activate_leaves(t["crowd"])
+        res.append(dict(g=g, q=q, upd=upd, act=act, sec=sec, qsec=qsec,
+                        flags=[bool(ovf), bool(miss), bool(aovf),
+                               bool(cap_ovf)]))
+    c, d = res
+    counts = [int(lev.table.count) for lev in d["g"].levels]
+    print(f"  {AG_CELLS} unique leaf cells in [-{AG_HALF}, {AG_HALF})^3 "
+          f"(dx {AG_DX}): blocks per level {counts} of {AG_CAPS}; build "
+          f"{d['sec'] * 1e3:.4f} ms, at {AG_QUERIES} points probe "
+          f"{d['qsec']['probe'] * 1e3:.4f} ms, sample "
+          f"{d['qsec']['sample'] * 1e3:.4f} ms, sample_gradient "
+          f"{d['qsec']['sample_gradient'] * 1e3:.4f} ms, sample_staggered "
+          f"{d['qsec']['sample_staggered'] * 1e3:.4f} ms ({card})",
+          flush=True)
+    _same_adaptive(d["g"], c["g"], "build")
+    check(True, "the three levels' keys, counts, payloads and child masks "
+                "on the card = the CPU's (negative cells: floor division)")
+    _same(d["q"]["probe"], c["q"]["probe"], "probe")
+    check(True, f"probe at {AG_QUERIES} points on the card = the CPU's bit "
+                f"for bit")
+    scale = float(np.abs(vals).max())
+    _close_abs(d["q"]["sample"], c["q"]["sample"], AG_TOL * scale,
+               f"sample (tolerance {AG_TOL} of max |value| {scale:.4f})")
+    _close_abs(d["q"]["sample_staggered"], c["q"]["sample_staggered"],
+               AG_TOL * scale, "sample_staggered")
+    gscale = c["q"]["sample_gradient"].abs().max().item()
+    _close_abs(d["q"]["sample_gradient"], c["q"]["sample_gradient"],
+               AG_TOL * gscale, f"sample_gradient (tolerance {AG_TOL} of "
+                                f"max |gradient| {gscale:.4f})")
+    check(d["flags"] == c["flags"] == [False, True, False, True],
+          f"flags (update, write to an inactive cell, activation of 4,096 "
+          f"far cells, of 16,384 beyond the capacity) {d['flags']} = the "
+          f"CPU's")
+    _same_adaptive(d["upd"], c["upd"], "update_leaf_values")
+    _same_adaptive(d["act"], c["act"], "activate_leaves")
+    check(True, "update_leaf_values and activate_leaves on the card = the "
+                "CPU's, level for level")
+
+
+def adaptive_grid_path(dev, card):
+    """Phase 36a; returns its scan launches on the card."""
+    phase("36a the adaptive grid, card against CPU")
+    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    with recorded_scans() as calls:
+        adaptive_card_vs_cpu(dev, card)
+    check(len(calls) == scan_op.LAUNCHES == 9,
+          f"36a: {scan_op.LAUNCHES} scans recorded on the card (3 levels "
+          f"each of the build and the two activations)")
+    replay_scans(calls)
+    check(True, "36a: every scan = plain on the same input")
+    return len(calls)
+
+
+def adaptive_ground_path(dev, card, rsim, rst, rdt, analytic, analytic_ms):
+    """Phase 36b, run beside phase 23's CPU worker (the card would wait on
+    it otherwise): the adaptive ground and the reversed analytic run are
+    timed in the same window.  Returns the scan launches of the path and
+    the adaptive ground (for phase 37's round trip)."""
+    phase("36b the README scene on an adaptive ground (beside phase 23's "
+          "CPU worker)")
+    n = rst.particles.size
+    ground = rsim.colliders[0]
+    check(len(rsim.colliders) == 1 and
+          isinstance(ground.levelset, levelset.HalfSpace),
+          "the README scene's one collider is the analytic ground")
+    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    with recorded_scans() as calls:
+        ag, sec = _event_seconds(lambda: ag_mod.adaptive_from_sdf(
+            ground.levelset, dx=DX_README, lo=(0, 0, 0), hi=(1, 1, 1),
+            band=AG_BAND, device=dev))
+        asim = dataclasses.replace(rsim, colliders=(dataclasses.replace(
+            ground, levelset=ag_mod.AdaptiveGridLevelSet(ag)),))
+        out, a_sec = _event_seconds(lambda: runner.simulate(
+            asim, rst, dt=rdt, steps=README_STEPS, path="binned2"))
+    launches = scan_op.LAUNCHES
+    check(nse_op.LAUNCHES == 0, "the adaptive path launched no NSE kernel")
+    lev0 = ag.levels[0]
+    print(f"  adaptive_from_sdf(ground, dx=1/128, [0, 1]^3, band {AG_BAND}) "
+          f"on the card: {int(lev0.table.count)} leaf blocks of "
+          f"{lev0.capacity}, blocks per level "
+          f"{[int(lv.table.count) for lv in ag.levels]}; "
+          f"{sec * 1e3:.4f} ms ({card})", flush=True)
+    check(len(calls) == launches, f"36b: {launches} scans recorded")
+    replay_scans(calls)
+    check(True, "36b: every scan of the adaptive build and the runner = "
+                "plain on the same input")
+    a_ms = a_sec * 1e3 / README_STEPS
+    print(f"  simulate {README_STEPS} steps over the adaptive ground (its "
+          f"{launches} scans recorded): {a_ms:.4f} ms/step = "
+          f"{n / a_ms / 1e3:.4f} M particle-steps/s, beside the analytic "
+          f"ground's {analytic_ms:.4f} ms/step (phase 21, without the CPU "
+          f"worker; {card})", flush=True)
+    m0 = rst.particles["m"][:n].double().sum().item()
+    _state_gates(out, m0, n, 0.05 - DX_README, "adaptive ground")
+    fsim, fst = _flipped(rsim, rst)
+    rev, r_sec = _event_seconds(lambda: runner.simulate(
+        fsim, fst, dt=rdt, steps=README_STEPS, path="binned2"))
+    print(f"  the analytic ground again, particles reversed, in the same "
+          f"window: {r_sec * 1e3 / README_STEPS:.4f} ms/step ({card})",
+          flush=True)
+    rev = {k: v.cpu() for k, v in _unflip(rev.particles.channels, n).items()}
+    got = {k: out.particles[k][:n].cpu() for k in TOL}
+    _within(analytic, got, {k: rev[k][:n] for k in TOL}, TOL,
+            f"adaptive ground against phase 21's analytic ground, "
+            f"{README_STEPS} steps through the impact",
+            spread_of="the card's")
+    return launches, ag
+
+
+def io_path(dev, card, ag, tmp):
+    """Phase 37: examples/mpm_block.py's path timed with the port's
+    profile, traced, exported to .vdb and read back; the adaptive ground's
+    .vdb round trip; the host ops; a log file."""
+    phase("37 I/O and tooling on examples/mpm_block.py's path")
+    sim, st, dt = scenes.mpm_block(N_MAIN, DX_MAIN, dev)
+    n = st.particles.size
+
+    def step(s):
+        return mpm_mod.explicit_step(sim, s, dt)
+
+    def steps(s, k):
+        for _ in range(k):
+            s = step(s)
+        return s
+    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    with recorded_scans() as calls:
+        first = prof_mod.Timer("first step").tick()
+        first_ms = first.tock(step(st), echo=False)
+        s = steps(st, IO_STEPS)
+        with prof_mod.trace(os.path.join(tmp, "trace")):
+            steps(s, 3)
+    launches = scan_op.LAUNCHES
+    check(nse_op.LAUNCHES == 0, "explicit_step launched no NSE kernel")
+    check(len(calls) == launches, f"{launches} scans recorded")
+    replay_scans(calls)
+    check(True, "every scan of the path = plain on the same input")
+    # timed apart from the recorded run (its clones hold device memory)
+    ms = prof_mod.bench(step, st, warmup=2, iters=10)
+    timer = prof_mod.Timer(f"{IO_STEPS} steps").tick()
+    total = timer.tock(steps(st, IO_STEPS), echo=False)
+    print(f"  explicit_step at {n} particles: first step {first_ms:.4f} ms, "
+          f"bench median {ms:.4f} ms/step (a sync after each step), "
+          f"{IO_STEPS} steps queued {total:.4f} ms = "
+          f"{total / IO_STEPS:.4f} ms/step, "
+          f"{n * IO_STEPS / total / 1e3:.4f} M particle-steps/s (Timer; "
+          f"{card})", flush=True)
+    with open(os.path.join(tmp, "trace", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    check(len(kern) > 0, f"the trace of 3 steps holds {len(kern)} CUDA "
+                         f"kernel events")
+    mem = prof_mod.memory_stats()
+    check(mem["bytes_in_use"] > 0 and mem["peak_bytes_in_use"] >=
+          mem["bytes_in_use"] and mem["bytes_limit"] ==
+          torch.cuda.get_device_properties(dev).total_memory,
+          f"memory_stats: {mem['bytes_in_use']} bytes in use, peak "
+          f"{mem['peak_bytes_in_use']}, limit {mem['bytes_limit']}")
+    # the grid to .vdb as the example does, read back on the card
+    path = os.path.join(tmp, "grid.vdb")
+    vdb_bridge.save_vdb(path, s.grid, ["m", "v"], grid_class="fog volume")
+    back = vdb_bridge.load_vdb_grids(path, device=dev)
+    check(sorted(back) == ["m", "v.0", "v.1", "v.2"],
+          f"{os.path.getsize(path)} bytes, grids {sorted(back)}")
+    count = int(s.grid.table.count)
+    cells = (s.grid.table.active_coords[:count, None, :] * 4 +
+             torch.as_tensor(neighbor_offsets(3, 0, 3), device=dev)[None])
+    for name, prop_name, ref in (
+            ("m", "m", s.grid.data["m"][:count]),
+            *[(f"v.{c}", "v", s.grid.data["v"][:count, :, c])
+              for c in range(3)]):
+        got = back[name].value_or(prop_name, cells)
+        _same(got, ref.cpu(), f"{name} read back")
+    check(True, f"m and v of the {count} active blocks read back from the "
+                f".vdb = the grid on the card, bit for bit")
+    # the adaptive ground through .vdb
+    apath = os.path.join(tmp, "ground.vdb")
+    vdb_mod.write_vdb(apath, [vdb_bridge.adaptive_to_vdb_grid(
+        ag, name="sdf", grid_class="level set")])
+    ag2 = vdb_bridge.vdb_grid_to_adaptive(vdb_mod.read_vdb(apath)[0],
+                                          device=dev)
+    g = torch.Generator(device=dev).manual_seed(37)
+    q = torch.rand((AG_QUERIES, 3), generator=g, device=dev)
+    q[:, 1] *= 0.25
+    _same(ag2.probe(q), ag.probe(q).cpu(), "adaptive ground probes")
+    check(True, f"the adaptive ground -> .vdb ({os.path.getsize(apath)} "
+                f"bytes) -> AdaptiveGrid: {AG_QUERIES} probes equal")
+    # the host ops
+    check(native.available(), "the host ops built with g++ into "
+                              "zpc_tpu_torch/_build/")
+    pc = torch.floor(s.particles["x"][:n] / DX_MAIN).to(torch.int32)
+    host = native.morton3d_host(pc.cpu().numpy())
+    _same(bits.morton3d(pc), torch.from_numpy(host), "morton3d")
+    check(True, f"morton3d_host of {n} particle cells = math.bits.morton3d "
+                f"on the card")
+    logp = os.path.join(tmp, "phase37.log")
+    h = log_mod.enable_file_logging(logp)
+    try:
+        log_mod.log("phase 37: %d particles, %.4f ms/step", n, ms)
+    finally:
+        log_mod.get_logger().removeHandler(h)
+        h.close()
+    with open(logp) as f:
+        check(f"phase 37: {n} particles" in f.read(),
+              "the logger wrote its file")
+    return launches, sim, st, dt, s
+
+
+def multi_device_path(dev, card, sim, st, dt, ref, tmp):
+    """Phase 38: the sharded and domain-decomposed steps at world size 1
+    (NCCL) over phase 37's scene, against its explicit_step run; then the
+    three steps timed in turns, 50 steps queued each."""
+    phase("38 the multi-device steps at world size 1 (NCCL)")
+    n = st.particles.size
+    pmesh.initialize_distributed(
+        f"file://{os.path.join(tmp, 'rendezvous')}", 1, 0, device=dev,
+        timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = pmesh.make_mesh(1)
+        check(dist.get_backend() == "nccl" and mesh.size() == 1,
+              "one NCCL rank on the card")
+        fsim, fst = _flipped(sim, st)
+        rev = fst
+        for _ in range(IO_STEPS):
+            rev = mpm_mod.explicit_step(fsim, rev, dt)
+        rev = {k: v.cpu() for k, v in _unflip(rev.particles.channels,
+                                                n).items()}
+        ref = {k: ref.particles[k][:n].cpu() for k in TOL}
+        def sharded():
+            s = dist_mod.shard_state(st, mesh)
+            for _ in range(IO_STEPS):
+                s = dist_mod.explicit_step_sharded(sim, s, dt, mesh)
+            return s.particles, torch.zeros((), dtype=torch.bool)
+
+        def decomposed():
+            d = dd_mod.make_dd_state(st, mesh)
+            ovf = torch.zeros((), dtype=torch.bool, device=dev)
+            for _ in range(IO_STEPS):
+                d, o = dd_mod.explicit_step_dd(
+                    sim, d, dt, mesh, grid_template=st.grid,
+                    nb_local=st.grid.block_capacity)
+                ovf = ovf | o
+            return d, ovf
+
+        def explicit():
+            s = st
+            for _ in range(IO_STEPS):
+                s = mpm_mod.explicit_step(sim, s, dt)
+            return s.particles, torch.zeros((), dtype=torch.bool)
+        runs = {"sharded": sharded, "domain-decomposed": decomposed}
+        launches = {}
+        for label, run in runs.items():
+            scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+            with recorded_scans() as calls:
+                out, ovf = run()
+                if label == "sharded":
+                    got = {k: out[k][:n].cpu() for k in TOL}
+                else:
+                    got = {k: torch.from_numpy(v) for k, v in
+                           dd_mod.gather_dd_particles(out, n, mesh).items()
+                           if k in TOL}
+            launches[label] = scan_op.LAUNCHES
+            check(nse_op.LAUNCHES == 0 and not bool(ovf),
+                  f"{label}: no NSE launch, no overflow")
+            check(len(calls) == launches[label],
+                  f"{label}: {launches[label]} scans recorded")
+            replay_scans(calls)
+            _within(ref, got, {k: rev[k][:n] for k in TOL}, TOL,
+                    f"{label} against explicit_step, {IO_STEPS} steps",
+                    spread_of="the card's")
+        runs["explicit"] = explicit
+        ms = {k: [] for k in runs}
+        for label in ("explicit", "sharded", "domain-decomposed",
+                      "domain-decomposed", "sharded", "explicit"):
+            _, sec = _event_seconds(runs[label])
+            ms[label].append(sec * 1e3 / IO_STEPS)
+        print(f"  ms/step at world size 1, {IO_STEPS} steps queued, timed "
+              f"in turns (explicit, sharded, DD, DD, sharded, explicit): "
+              f"{ {k: [round(t, 4) for t in v] for k, v in ms.items()} } "
+              f"({card})", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def main():
     card = environment()
     dev = zpc_tpu_torch.cuda_device(0)
@@ -3848,10 +4241,12 @@ def main():
     config1_launches, _ = config1(dev, card)
     container_launches = containers_path(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
-        rsim, rst, rdt, readme_launches = readme_path(dev, card, tmp)
+        rsim, rst, rdt, readme_launches, readme_out, readme_ms = \
+            readme_path(dev, card, tmp)
     # the CPU references of phases 23, 27 and 34 run in worker processes
-    # beside the untimed phases 22, 25, 35 and 23 (after every timed phase
-    # before them): phase 23's, the longest, would leave the card idle
+    # beside the untimed phases 22, 25, 35 and 23 and phase 36b (after
+    # every timed phase before them): phase 23's, the longest, would leave
+    # the card idle
     with concurrent.futures.ProcessPoolExecutor(
             2, mp_context=multiprocessing.get_context("spawn")) as pool:
         discs_ref = pool.submit(discs_cpu_reference, DISCS_BINNED)
@@ -3861,6 +4256,8 @@ def main():
         readme_card_vs_cpu(dev)
         rest_card_vs_cpu(dev)
         robust_geometry(dev, card)
+        ag_launches, ag = adaptive_ground_path(dev, card, rsim, rst, rdt,
+                                               readme_out, readme_ms)
         discs_card_vs_cpu(dev, discs_ref)
     discs_launches, _ = discs_at_scale(dev, card)
     migrate_launches, _ = incremental_rebin(rsim, rst, rdt, card)
@@ -3870,10 +4267,20 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         surface_launches, _ = surface_path(dev, card, fluid["x"],
                                            surface_ref, tmp)
+    ag_launches_a = adaptive_grid_path(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        io_launches, bsim, bst, bdt, bout = io_path(dev, card, ag, tmp)
+        md_launches = multi_device_path(dev, card, bsim, bst, bdt, bout, tmp)
     new = {"LBVH query family (phase 32)": query_launches,
            "mesh queries (phase 33)": mesh_launches,
            "dam-break surface (phase 34)": surface_launches}
     print(f"  phases 32-34, (scan, NSE) launches: {new}", flush=True)
+    later = {"adaptive grid card against CPU (phase 36a)": ag_launches_a,
+             "README scene on the adaptive ground (phase 36b)": ag_launches,
+             "examples/mpm_block.py with I/O (phase 37)": io_launches,
+             **{f"{k} step at world size 1 (phase 38)": v
+                for k, v in md_launches.items()}}
+    print(f"  phases 36-38, scan launches (no NSE): {later}", flush=True)
     per_path = {"elastic block (phase 4)": launches,
                 "dam break (phase 10)": fluid_launches,
                 "materials (phase 12)": mat_launches,
@@ -3885,7 +4292,7 @@ def main():
                 "2-D discs at scale (phase 24)": discs_launches,
                 "incremental rebin (phase 26)": migrate_launches,
                 "cloth and FEM (phases 27-31)": cloth_launches,
-                **{k: v[0] for k, v in new.items()}}
+                **{k: v[0] for k, v in new.items()}, **later}
     print(f"  scan launches per path: {per_path}; total "
           f"{sum(per_path.values())}", flush=True)
     launches = sum(per_path.values())

@@ -2,7 +2,8 @@
 :class:`MemSrc` and :class:`Layout` (the reference's ``memsrc_e`` and
 ``layout_e``, kept for API parity: memory is a ``torch.device`` here, and
 every container is stored SoA), :class:`PropertyTag` and :func:`prop`, which
-declare the named multi-channel properties of a structured field."""
+declare the named multi-channel properties of a structured field, and the
+port's default dtypes (fp32 compute, int32 indices)."""
 
 from __future__ import annotations
 
@@ -10,7 +11,14 @@ import dataclasses
 import enum
 from typing import Tuple, Union
 
-__all__ = ["MemSrc", "Layout", "PropertyTag", "prop"]
+import torch
+
+__all__ = ["MemSrc", "Layout", "PropertyTag", "prop", "default_float",
+           "default_int", "index_dtype"]
+
+default_float = torch.float32
+default_int = torch.int32
+index_dtype = torch.int32
 
 
 class MemSrc(enum.Enum):

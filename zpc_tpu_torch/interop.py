@@ -9,8 +9,9 @@ states and bin states, configs with the incremental rebin), the LBVH,
 the implicit step's mesh contact (``MeshContact``, ``ContactSet``), cloth
 (``ClothSim`` with its incidence tables and grid stencil), tet FEM
 (``FemSim`` with its elastic model), sparse level sets, triangle and tet
-meshes, the sweep structure ``Bvs``, pair fronts (``BvttFront``) and
-``BigInt``; anything else raises.
+meshes, the sweep structure ``Bvs``, pair fronts (``BvttFront``),
+``BigInt`` and adaptive grids (also as a collider's level set); anything
+else raises.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from .containers.block_table import BlockTable
 from .containers.bvh import BvttFront, LBvh
 from .containers.bvs import Bvs
 from .containers.structured import StructuredField
+from .geometry.adaptive_grid import (AdaptiveGrid, AdaptiveGridLevelSet,
+                                     AdaptiveLevel)
 from .geometry.collider import Collider, ColliderType
 from .geometry import levelset as ls_mod
 from .geometry.mesh import TetMesh, TriMesh
@@ -43,7 +46,8 @@ __all__ = ["sim_from_jax", "config_from_jax", "state_from_jax",
            "lbvh_to_numpy", "mesh_contact_from_jax", "contact_set_from_jax",
            "cloth_from_jax", "fem_from_jax", "sparse_levelset_from_jax",
            "trimesh_from_jax", "tetmesh_from_jax", "bvs_from_jax",
-           "bvtt_front_from_jax", "bigint_from_jax"]
+           "bvtt_front_from_jax", "bigint_from_jax",
+           "adaptive_grid_from_jax"]
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -54,10 +58,13 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 def _levelset_from_jax(ls, device):
     """Any analytic level set of ``zpc_tpu.geometry.levelset``, field for
     field: arrays become tensors, ints (``orient``) stay, wrapped sets
-    convert in turn; a ``SparseLevelSet`` by :func:`sparse_levelset_from_jax`."""
+    convert in turn; a ``SparseLevelSet`` by :func:`sparse_levelset_from_jax`,
+    an ``AdaptiveGridLevelSet`` by :func:`adaptive_grid_from_jax`."""
     kind = type(ls).__name__
     if kind == "SparseLevelSet":
         return sparse_levelset_from_jax(ls, device)
+    if kind == "AdaptiveGridLevelSet":
+        return AdaptiveGridLevelSet(adaptive_grid_from_jax(ls.grid, device))
     cls = getattr(ls_mod, kind, None)
     if cls is None or kind not in ls_mod.__all__ or kind == "LevelSet":
         raise NotImplementedError(f"level set {kind} is not ported")
@@ -306,3 +313,19 @@ def bvtt_front_from_jax(front, device: torch.device) -> BvttFront:
 def bigint_from_jax(b, device: torch.device) -> BigInt:
     """``zpc_tpu.math.bigint.BigInt`` -> :class:`BigInt`, limb for limb."""
     return BigInt(_tensor(b.sign, device), _tensor(b.mag, device))
+
+
+def adaptive_grid_from_jax(ag, device: torch.device) -> AdaptiveGrid:
+    """``zpc_tpu.geometry.adaptive_grid.AdaptiveGrid`` ->
+    :class:`AdaptiveGrid` on ``device``: every level's table, payload and
+    child mask, the transform, and the static fields as they are."""
+    levels = tuple(
+        AdaptiveLevel(BlockTable(_tensor(lev.table.keys, device),
+                                 _tensor(lev.table.count, device),
+                                 lev.table.dim),
+                      _tensor(lev.value, device), _tensor(lev.child, device))
+        for lev in ag.levels)
+    return AdaptiveGrid(levels, Transform(_tensor(ag.transform.matrix,
+                                                  device)),
+                        tuple(int(b) for b in ag.block_sizes), int(ag.dim),
+                        float(ag.background))
