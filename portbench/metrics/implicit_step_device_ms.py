@@ -1,0 +1,11 @@
+"""implicit_step_device_ms (ms): device time of the work launched inside
+the benchmark's step span (``implicit_step_binned2``: right-hand side,
+contact, the CG loop's operator applications, G2P) per step of the
+traced slice."""
+
+
+def read(t):
+    if t.steps == 0 or not t.cg_iters or \
+            t.span_device_s.get("step", 0.0) <= 0:
+        return None
+    return 1e3 * t.span_device_s["step"] / t.steps
