@@ -151,3 +151,171 @@ def test_cuda_timing_and_memory(tmp_path):
     with open(tmp_path / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("cat") == "kernel" for e in events)
+
+
+# -- spans and host syncs in the stepping code ------------------------------
+
+def _small_scene(contact: bool = False):
+    """A 1,024-particle elastic block at dx = 1/32 in 64 bins, optionally
+    over a two-triangle floor 5 mm below it (with the CCD clamp)."""
+    from zpc_tpu_torch import scenes
+    from zpc_tpu_torch.sim import contact_implicit as ci
+    from zpc_tpu_torch.sim import mpm_binned2 as b2
+    cpu = torch.device("cpu")
+    sim, st, dt = scenes.mpm_block(1024, 1.0 / 32, cpu, block_capacity=256)
+    cfg = b2.BinnedConfig2(bins_capacity=64, block_capacity=256)
+    mc = None
+    if contact:
+        mc = ci.MeshContact.build(scenes.floor_mesh(0.57, 0.0, 1.0, cpu),
+                                  0.01, 10.0, max_tris=2, use_ccd=True)
+    return sim, b2.bin_state(sim, st, cfg), dt, cfg, mc
+
+
+def _run_both_paths(scene, n_explicit: int = 2):
+    """On ``_small_scene(contact=True)``: a short explicit chain that
+    starts with a full rebin, a migration, and one implicit step over the
+    floor; returns its CG iterations."""
+    import dataclasses as dc
+    from zpc_tpu_torch.sim import implicit_binned2 as ib2
+    from zpc_tpu_torch.sim import mpm_binned2 as b2
+    sim, bst, dt, cfg, mc = scene
+    st = dc.replace(bst, needs_rebin=torch.ones((), dtype=torch.bool))
+    st = b2.adaptive_chain(
+        lambda s: b2.explicit_step_binned2(sim, s, dt, cfg, rebin=False),
+        lambda s: b2.rebin_adaptive(sim, s, cfg), st, n_explicit)
+    b2.rebin_adaptive(sim, st, dc.replace(cfg, migrate_capacity=256))
+    _, iters = ib2.implicit_step_binned2(sim, bst, 1e-3, cfg, cg_iters=20,
+                                         contact=mc, rebin=False,
+                                         with_stats=True)
+    return iters
+
+
+# span -> the spans one of which holds it (None: anywhere)
+_NESTED = {
+    "zpc.ctx": None, "zpc.stress": None, "zpc.p2g": None,
+    "zpc.grid_update": None, "zpc.advance": None,
+    "zpc.g2p": ("zpc.advance", "zpc.cg.apply"), "zpc.rebin.migrate": None,
+    "zpc.rebin.full": None, "zpc.rebin.sort": "zpc.rebin.full",
+    "zpc.rebin.groups": "zpc.rebin.full",
+    "zpc.rebin.finish": "zpc.rebin.full",
+    "zpc.implicit.rhs": None, "zpc.implicit.linearize": None,
+    "zpc.cg": None, "zpc.cg.apply": "zpc.cg",
+    "zpc.contact.broad": None, "zpc.contact.narrow": None,
+    "zpc.contact.ccd": "zpc.advance",
+    "zpc.sync.chain_flag": None, "zpc.sync.rebin_choice": None,
+    "zpc.sync.cg_poll": "zpc.cg", "zpc.sync.ctx_offsets": "zpc.ctx",
+    "zpc.sync.node_corners": ("zpc.grid_update", "zpc.implicit.rhs"),
+    "zpc.sync.bin_offsets": "zpc.rebin.finish",
+    "zpc.sync.slot_dirs": "zpc.rebin.finish",
+}
+
+
+def _zpc_ancestors(path):
+    """Each ``zpc.*`` range of a Chrome trace with the names of the
+    ``zpc.*`` ranges that hold it on its thread."""
+    with open(path) as f:
+        ev = [e for e in json.load(f)["traceEvents"]
+              if e.get("ph") == "X" and e.get("name", "").startswith("zpc.")]
+    out = []
+    for e in ev:
+        s, t = e["ts"], e["ts"] + e["dur"]
+        out.append((e["name"], {
+            o["name"] for o in ev if o is not e and o["tid"] == e["tid"]
+            and o["ts"] <= s and t <= o["ts"] + o["dur"]}))
+    return out
+
+
+def test_spans_nest_in_the_trace(tmp_path):
+    """Every span of the explicit chain, the rebins, the implicit step and
+    the contact is in the Chrome trace, and each sits where it belongs:
+    G2P and the CCD inside the advance, the rebin's phases inside the
+    full rebin, the operator applications and the polls inside the CG
+    loop, the transfers inside the right-hand side and the
+    applications, the table copies inside their stages."""
+    scene = _small_scene(contact=True)
+    with P.trace(str(tmp_path)):
+        _run_both_paths(scene)
+    spans = _zpc_ancestors(tmp_path / "trace.json")
+    assert {n for n, _ in spans} == set(_NESTED)
+    for name, holders in spans:
+        want = _NESTED[name]
+        if want is not None:
+            assert holders & set((want,) if isinstance(want, str) else
+                                 want), (name, holders)
+    in_cg = {n for n, h in spans if "zpc.cg.apply" in h}
+    assert {"zpc.g2p", "zpc.p2g"} <= in_cg
+    assert "zpc.p2g" in {n for n, h in spans if "zpc.implicit.rhs" in h}
+    # the stages are never inside one another
+    stages = {"zpc.ctx", "zpc.stress", "zpc.cg", "zpc.advance",
+              "zpc.rebin.full", "zpc.rebin.migrate", "zpc.implicit.rhs"}
+    assert not any(h & stages for n, h in spans if n in stages)
+
+
+def test_no_span_without_a_profiler(monkeypatch):
+    """With no profiler running the stepping code enters no profiler
+    range at all; with the profiler's flag up the same code would."""
+    import torch.autograd.profiler as ap
+    entered = []
+
+    class Counting:
+        def __init__(self, *a, **k):
+            entered.append(a)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+    monkeypatch.setattr(torch.profiler, "record_function", Counting)
+    monkeypatch.setattr(ap, "record_function", Counting)
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", Counting)
+    assert not ap._is_profiler_enabled
+    _run_both_paths(_small_scene(contact=True), n_explicit=1)
+    assert entered == []
+    monkeypatch.setattr(ap, "_is_profiler_enabled", True)
+    with P.span("ctx"):
+        pass
+    assert entered == [("zpc.ctx",)]
+
+
+def test_host_syncs_count_the_chain_flag_and_the_cg_polls():
+    """An n-step chain with no rebin reads its flag n + 1 times and copies
+    the stencil's and the nodes' tables once a step; a CG solve that
+    converges before max_iters reads iters + 2 scalars (the threshold,
+    then one poll per iteration and the last)."""
+    from zpc_tpu_torch.math import solvers
+    from zpc_tpu_torch.sim import mpm_binned2 as b2
+    sim, bst, dt, cfg, _ = _small_scene()
+    sites = ("chain_flag", "ctx_offsets", "node_corners", "rebin_choice")
+    before = {k: P.HOST_SYNCS[k] for k in sites}
+    out = b2.adaptive_chain(
+        lambda s: b2.explicit_step_binned2(sim, s, dt, cfg, rebin=False),
+        lambda s: pytest.fail("no rebin expected"), bst, 3)
+    assert not bool(out.needs_rebin)
+    assert {k: P.HOST_SYNCS[k] - before[k] for k in sites} == {
+        "chain_flag": 3 + 1, "ctx_offsets": 3, "node_corners": 3,
+        "rebin_choice": 0}
+
+    diag = torch.linspace(1.0, 4.0, 64)
+    b = torch.ones(64)
+    before = P.HOST_SYNCS["cg_poll"]
+    res = solvers.cg(lambda v: diag * v, b, max_iters=200, rel_tol=1e-6)
+    assert bool(res.converged) and 0 < res.iters < 200
+    assert P.HOST_SYNCS["cg_poll"] - before == res.iters + 2
+    before = P.HOST_SYNCS["test_site"]
+    assert P.read_host(torch.tensor(2.5), "test_site") == 2.5
+    assert P.HOST_SYNCS["test_site"] - before == 1
+
+
+def test_executor_scope_emits_its_span(capsys):
+    from zpc_tpu_torch.core.executor import Executor
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with Executor(device=torch.device("cpu")).scope("region"):
+            torch.ones(8) + 1
+        with Executor(device=torch.device("cpu")).profile(True).scope(
+                "timed"):
+            torch.ones(8) + 1
+    names = [e.name for e in prof.events()]
+    assert "zpc.region" in names and "zpc.timed" in names
+    assert "timed" in capsys.readouterr().out

@@ -18,10 +18,13 @@ chip_smoke phase 16's floor (two triangles at y = 0.57 spanning [0, 1]^2,
 MeshContact dhat 0.01, kappa 10, max_tris 8).  Each warms up, then traces
 10 steps (3 for ``implicit`` and ``contact``) and one rebin_adaptive with
 torch.profiler.  Prints
-the card's name and power limit, the wall time and device time of the
-window (so the device's busy share), and the ops with the most device
+the card's name and power limit, the wall time of the window, the
+device's busy time in it (the union of its activity, reduced by
+``portbench/harness/trace.py:reduce_profile`` as the benchmark reduces
+its traced slice) and so its busy share, and the ops with the most device
 time (each op's own kernels); the full table goes to
-chiprun_out/profile_torch_step_<scene>.txt.
+chiprun_out/profile_torch_step_<scene>.txt.  ``tools/cell_spans.py``
+splits a benchmark cell's slice by the program's own spans.
 
 For ``contact`` it also times the contact's parts on the binned state
 (CUDA events, mean of 5): the context, the broad phase, the narrow
@@ -57,6 +60,7 @@ from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 import zpc_tpu_torch  # noqa: E402
+from portbench.harness.trace import reduce_profile  # noqa: E402
 from zpc_tpu_torch import scenes  # noqa: E402
 from zpc_tpu_torch.sim import fluid_binned2 as fb  # noqa: E402
 from zpc_tpu_torch.sim import implicit_binned2 as ib2  # noqa: E402
@@ -253,24 +257,21 @@ def main():
         window(bst)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    ev = prof.key_averages()
-    # kernels (device events) sum to the device time; each host op's self
-    # device time is that of the kernels it launched
-    device_us = sum(e.self_device_time_total for e in ev
-                    if e.device_type == DeviceType.CUDA)
-    if device_us <= 0:
+    busy, _, _, _ = reduce_profile(prof.events())
+    if busy <= 0:
         raise RuntimeError("the profiler saw no device time: time with "
                            "CUDA events instead")
+    ev = prof.key_averages()
+    # each host op's self device time is that of the kernels it launched
     ops = [e for e in ev if e.device_type == DeviceType.CPU]
     print(f"{scene}: {steps} steps{'' if rebin is None else ' + 1 rebin'}: "
-          f"wall {wall * 1e3:.4f} ms, "
-          f"device {device_us / 1e3:.4f} ms, busy share "
-          f"{device_us / 1e3 / (wall * 1e3):.4f} ({card})", flush=True)
+          f"wall {wall * 1e3:.4f} ms, device busy {busy * 1e3:.4f} ms, "
+          f"busy share {busy / wall:.4f} ({card})", flush=True)
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:15]:
         if e.self_device_time_total <= 0:
             break
         print(f"  {e.key[:60]:60s} {e.self_device_time_total / 1e3:10.4f} ms"
-              f" {100 * e.self_device_time_total / device_us:6.2f}%"
+              f" {100 * e.self_device_time_total * 1e-6 / busy:6.2f}%"
               f" x{e.count}", flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out",

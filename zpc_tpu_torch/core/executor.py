@@ -33,6 +33,8 @@ from typing import Callable, Optional
 
 import torch
 
+from ..utils.profile import span
+
 __all__ = ["Executor", "cuda_device", "seq_exec", "tpu_exec", "jit_exec",
            "par_exec"]
 
@@ -193,14 +195,18 @@ class Executor:
 
     @contextlib.contextmanager
     def scope(self, label: str):
-        """Time a region (the reference's ``CppTimer`` tick/tock)."""
-        if not self.profile_flag:
-            yield
-            return
-        site = _call_site(3)
-        with self._timer(self.device) as elapsed:
-            yield
-        print(f"[zpc_tpu_torch scope | {site}] {label}: {elapsed():.3f} ms")
+        """Time a region (the reference's ``CppTimer`` tick/tock); the
+        region is also the span ``zpc.<label>`` of a running profiler
+        (:func:`~zpc_tpu_torch.utils.profile.span`)."""
+        with span(label):
+            if not self.profile_flag:
+                yield
+                return
+            site = _call_site(3)
+            with self._timer(self.device) as elapsed:
+                yield
+            print(f"[zpc_tpu_torch scope | {site}] {label}: "
+                  f"{elapsed():.3f} ms")
 
 
 def seq_exec() -> Executor:

@@ -10,7 +10,10 @@ The JAX package's ``lax.while_loop`` is a host loop here, with the same
 stopping rule and the same guards against a zero denominator.  Deciding
 whether to go on reads one scalar from the device on every iteration (one
 device-to-host synchronisation per iteration, as ``adaptive_chain`` has one
-per step); the iteration count is a host integer.
+per step); the iteration count is a host integer.  :func:`cg` runs inside
+the span ``zpc.cg``, each operator application inside ``zpc.cg.apply``,
+and its reads (the stopping threshold, then one an iteration) count as
+``cg_poll`` in :data:`~zpc_tpu_torch.utils.profile.HOST_SYNCS`.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from ..utils.profile import read_host, span, spanned
 
 __all__ = ["SolveResult", "cg", "conjugate_residual", "minres", "dot",
            "axpy"]
@@ -74,6 +79,7 @@ def _safe(d: torch.Tensor) -> torch.Tensor:
     return torch.where(d == 0, 1.0, d)
 
 
+@spanned("cg")
 def cg(A: Callable, b, x0=None, *, project: Optional[Callable] = None,
        precondition: Optional[Callable] = None, max_iters: int = 100,
        rel_tol: float = 1e-4, abs_tol: float = 0.0) -> SolveResult:
@@ -83,16 +89,20 @@ def cg(A: Callable, b, x0=None, *, project: Optional[Callable] = None,
     iterations have run."""
     project = project or _identity
     precondition = precondition or _identity
+
+    def apply(v):
+        with span("cg.apply"):
+            return A(v)
     x = _map(torch.zeros_like, b) if x0 is None else x0
-    r = project(axpy(-1.0, A(x), b))
+    r = project(axpy(-1.0, apply(x), b))
     z = project(precondition(r))
     p = z
     zTr = dot(z, r)
     threshold = torch.clamp_min(rel_tol * rel_tol * zTr, abs_tol)
-    thr = threshold.item()
+    thr = read_host(threshold, "cg_poll")
     it = 0
-    while it < max_iters and zTr.item() > thr:
-        Ap = project(A(p))
+    while it < max_iters and read_host(zTr, "cg_poll") > thr:
+        Ap = project(apply(p))
         alpha = zTr / _safe(dot(p, Ap))
         x = axpy(alpha, p, x)
         r = axpy(-alpha, Ap, r)

@@ -18,6 +18,10 @@
 * **Capacity contract.**  More than ``max_tris`` candidates near a live
   bin, or a live bin's query that the banded join cannot certify (out of
   band), set the overflow flag for the host; nothing raises.
+
+The broad phase, the narrow phase and the CCD run inside the spans
+``zpc.contact.broad``, ``zpc.contact.narrow`` and ``zpc.contact.ccd``
+(:mod:`zpc_tpu_torch.utils.profile`).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 from ..containers.bvh import LBvh, build_lbvh_complete, query_overlaps_sorted
 from ..geometry.contact import barrier, barrier_grad, barrier_hess
 from ..geometry.distance import point_triangle_ccd, point_triangle_closest
+from ..utils.profile import spanned
 from .mpm_binned2 import SIDE, K
 
 __all__ = ["MeshContact", "ContactSet"]
@@ -67,6 +72,7 @@ class MeshContact:
                            use_ccd)
 
     # -- broad phase --------------------------------------------------------
+    @spanned("contact.broad")
     def broad_phase(self, ctx, lane_alive: torch.Tensor) -> ContactSet:
         """One dhat-padded box query per bin window.  ``ctx`` is the step's
         :class:`~zpc_tpu_torch.sim.mpm_binned2._Ctx`, ``lane_alive [B,
@@ -128,6 +134,7 @@ class MeshContact:
             (d2 < self.dhat * self.dhat)
         return act, diff, d2
 
+    @spanned("contact.narrow")
     def forces_and_hessians(self, cset: ContactSet, xb: torch.Tensor,
                             lane_alive: torch.Tensor):
         """Barrier force [B, K, 3] and GN-PSD position Hessian [B, K, 3,
@@ -152,6 +159,7 @@ class MeshContact:
         return torch.where(act, barrier(d2, self.dhat * self.dhat,
                                         self.kappa), 0.0).sum()
 
+    @spanned("contact.ccd")
     def toi(self, cset: ContactSet, xb: torch.Tensor, dxb: torch.Tensor,
             lane_alive: torch.Tensor, min_sep: float = 1e-4) -> torch.Tensor:
         """Per-lane conservative time of impact in (0, 1] ``[B, K]`` of the

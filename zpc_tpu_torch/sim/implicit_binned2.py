@@ -30,6 +30,11 @@ velocity in every operator application's plain channels.
 ``contact_precond`` adds the barrier Hessian's diagonal, transferred with
 squared weights, to the mass-Jacobi preconditioner; ``use_ccd`` scales
 each particle's advection by its conservative time of impact.
+
+The right-hand side (through the predictor and the boundary conditions)
+and the stress's linearisation run inside the spans ``zpc.implicit.rhs``
+and ``zpc.implicit.linearize``; the context, the transfers, the CG loop
+and the contact carry their own (:mod:`zpc_tpu_torch.utils.profile`).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import torch
 from ..geometry.collider import resolve_boundaries
 from ..math.solvers import cg
 from ..math.vecmat import mm33
+from ..utils.profile import span
 from .mpm import MPMSim, MPMState
 from .mpm_binned2 import (K, BinnedConfig2, BinState, _advance, _ctx_g2p,
                           _ctx_p2g_affine, _ctx_p2g_squared, _lane_model,
@@ -84,24 +90,26 @@ def _implicit_bin_step(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
                 return contact.toi(cset, xbk, disp.view(B, K, 3),
                                    lane_alive).view(L)
 
-    # right-hand side: mass, APIC momentum and internal force in one P2G
-    model = _lane_model(sim.model, st.pid)
-    tau = model.kirchhoff(Fb)
-    A_m = m[:, None, None] * Cb
-    A_f = (-dinv * vol)[:, None, None] * tau
-    Q0 = torch.cat([m[:, None], m[:, None] * vb, fc], -1)
-    acc = _ctx_p2g_affine(ctx, Q0, torch.cat([zeros, A_m, A_f], 1))
-    gm, gmv, fint = acc[..., 0], acc[..., 1:4], acc[..., 4:7]
+    with span("implicit.rhs"):
+        # right-hand side: mass, APIC momentum and internal force, one P2G
+        model = _lane_model(sim.model, st.pid)
+        tau = model.kirchhoff(Fb)
+        A_m = m[:, None, None] * Cb
+        A_f = (-dinv * vol)[:, None, None] * tau
+        Q0 = torch.cat([m[:, None], m[:, None] * vb, fc], -1)
+        acc = _ctx_p2g_affine(ctx, Q0, torch.cat([zeros, A_m, A_f], 1))
+        gm, gmv, fint = acc[..., 0], acc[..., 1:4], acc[..., 4:7]
 
-    # predictor and Dirichlet mask
-    has_mass = gm > 0.0
-    minv = torch.where(has_mass, 1.0 / gm.clamp_min(1e-30), 0.0)
-    v_pred = (gmv + dt * fint) * minv[..., None] + dt * sim.gravity
-    v_pred = torch.where(has_mass[..., None], v_pred, 0.0)
-    v_bc = resolve_boundaries(sim.colliders, _node_positions(ctx), v_pred)
-    constrained = ((v_bc - v_pred).abs() > 0.0).any(-1)
-    free = has_mass & ~constrained
-    free_f = free.to(torch.float32)[..., None]
+        # predictor and Dirichlet mask
+        has_mass = gm > 0.0
+        minv = torch.where(has_mass, 1.0 / gm.clamp_min(1e-30), 0.0)
+        v_pred = (gmv + dt * fint) * minv[..., None] + dt * sim.gravity
+        v_pred = torch.where(has_mass[..., None], v_pred, 0.0)
+        v_bc = resolve_boundaries(sim.colliders, _node_positions(ctx),
+                                  v_pred)
+        constrained = ((v_bc - v_pred).abs() > 0.0).any(-1)
+        free = has_mass & ~constrained
+        free_f = free.to(torch.float32)[..., None]
 
     def project(u):
         return u * free_f
@@ -109,7 +117,8 @@ def _implicit_bin_step(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
     # (M + dt^2 K [+ dt^2 K_c]) u over [nb, 64, 3]
     FbT = Fb.transpose(-1, -2)
     kscale = (dt * dinv * vol)[:, None, None]
-    dP_dF = model.linearize(Fb)
+    with span("implicit.linearize"):
+        dP_dF = model.linearize(Fb)
 
     def A_op(u):
         s0, dC = _ctx_g2p(ctx, u)

@@ -50,6 +50,16 @@ The JAX 2-D step keeps its grid origin in the transform's column 2
 (``matrix[:2, 2]``), where every other path reads column 3; the port keeps
 it in column 3 (:attr:`SparseGrid.origin`) in 2-D as in 3-D.  The two
 agree for a grid made without an origin.
+
+Each stage runs inside a span of :mod:`zpc_tpu_torch.utils.profile`
+(``zpc.ctx``, ``zpc.stress``, ``zpc.p2g``, ``zpc.grid_update``,
+``zpc.advance`` with ``zpc.g2p`` inside; ``zpc.rebin.migrate`` and
+``zpc.rebin.full`` with ``zpc.rebin.sort``, ``zpc.rebin.groups`` and
+``zpc.rebin.finish`` inside).  The chain's flag reads and the rebin's
+choice count in ``HOST_SYNCS`` as ``chain_flag`` and ``rebin_choice``, and
+the stencil's and the block table's constant tables, copied to the device
+where they are used, as ``ctx_offsets``, ``node_corners``,
+``bin_offsets`` and ``slot_dirs``.
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ from ..geometry.sparse_grid import SparseGrid, neighbor_offsets
 from ..math.interpolation import bspline_weights
 from ..math.vecmat import mm
 from ..parallel.primitives import inclusive_scan
+from ..utils.profile import read_host, span, spanned, to_device
 from .mpm import MPMSim, MPMState
 
 __all__ = ["K", "BinnedConfig2", "BinState", "bin_state", "unbin_state",
@@ -238,7 +249,7 @@ def _finish_bins(sck: torch.Tensor, spid: torch.Tensor, scols: torch.Tensor,
     """Block table (dilated by +1 per axis) from the group keys, per-bin
     block slots from each bin's first lane, and the BinState."""
     dev = sck.device
-    offs = torch.as_tensor(neighbor_offsets(dim, 0, 1), device=dev)
+    offs = to_device(neighbor_offsets(dim, 0, 1), dev, "bin_offsets")
     gcoords = unpack_key(gkeys, dim)
     cand = (gcoords[:, None, :] + offs[None]).reshape(-1, dim)
     vmask = gvalid.repeat_interleave(offs.shape[0])
@@ -307,8 +318,8 @@ def _neighbor_slots(table) -> torch.Tensor:
     """[nb, 2^dim] slots of each block's window quadrants: own + the +1
     neighbours in ``neighbor_offsets(dim, 0, 1)`` order, -1 where
     absent."""
-    dirs = torch.as_tensor(neighbor_offsets(table.dim, 0, 1)[1:],
-                           device=table.keys.device)
+    dirs = to_device(neighbor_offsets(table.dim, 0, 1)[1:],
+                     table.keys.device, "slot_dirs")
     coords = table.active_coords
     nbr_pos = table.query(coords[:, None, :] + dirs[None])  # [nb, 2^d - 1]
     own = torch.arange(table.capacity, dtype=torch.int32,
@@ -330,6 +341,7 @@ def _dummy_keys_by_rank(gkeys, gvalid, pads, padcum, size: int):
     return inclusive_scan(_POL, gmark[:size], "max")
 
 
+@spanned("rebin.full")
 def _rebin(sim: MPMSim, st: BinState, cfg: BinnedConfig2) -> BinState:
     """Re-sort a BinState into fresh bins (bin order in and out)."""
     grid = st.grid
@@ -350,26 +362,31 @@ def _sort_into_bins_from_lanes(keys, cols, pid, cfg: BinnedConfig2,
     nbq = cfg.bins_capacity
     if L != nbq * K:
         raise ValueError(f"{L} lanes do not match bins_capacity={nbq}")
-    skey = torch.sort(keys).values
-    gkeys, gvalid, counts, n_groups = _groups(skey, nbq)
-    pads = _pads(counts, gvalid, cfg)
-    overflow = ((counts + pads).sum() > L) | (n_groups > nbq)
+    with span("rebin.sort"):
+        skey = torch.sort(keys).values
+    with span("rebin.groups"):
+        gkeys, gvalid, counts, n_groups = _groups(skey, nbq)
+        pads = _pads(counts, gvalid, cfg)
+        overflow = ((counts + pads).sum() > L) | (n_groups > nbq)
 
-    # the j-th dead lane (in lane order) pads the group whose cumulative
-    # pad range covers j
-    dead = keys == KEY_SENTINEL
-    dead_rank = inclusive_scan(_POL, dead.to(torch.int32)) - 1
-    padcum = inclusive_scan(_POL, pads.to(torch.int32))
-    dense = _dummy_keys_by_rank(gkeys, gvalid, pads, padcum, L)
-    in_budget = dead & (dead_rank < padcum[-1])
-    keys2 = torch.where(in_budget, dense[dead_rank.clamp(0, L - 1).long()],
-                        keys)
-    ckey = _composite_key(keys2, dead)
-    sck, perm = torch.sort(ckey, stable=True)
-    return _finish_bins(sck, pid[perm], cols[perm], gkeys, gvalid, overflow,
-                        cfg, nb, dim)
+        # the j-th dead lane (in lane order) pads the group whose
+        # cumulative pad range covers j
+        dead = keys == KEY_SENTINEL
+        dead_rank = inclusive_scan(_POL, dead.to(torch.int32)) - 1
+        padcum = inclusive_scan(_POL, pads.to(torch.int32))
+        dense = _dummy_keys_by_rank(gkeys, gvalid, pads, padcum, L)
+        in_budget = dead & (dead_rank < padcum[-1])
+        keys2 = torch.where(in_budget,
+                            dense[dead_rank.clamp(0, L - 1).long()], keys)
+        ckey = _composite_key(keys2, dead)
+    with span("rebin.sort"):
+        sck, perm = torch.sort(ckey, stable=True)
+    with span("rebin.finish"):
+        return _finish_bins(sck, pid[perm], cols[perm], gkeys, gvalid,
+                            overflow, cfg, nb, dim)
 
 
+@spanned("rebin.migrate")
 def _rebin_incremental(sim: MPMSim, st: BinState, cfg: BinnedConfig2,
                        m_cap: int) -> Tuple[BinState, torch.Tensor]:
     """Migrate up to ``m_cap`` particles into free (dead or dummy) lanes of
@@ -462,7 +479,7 @@ def rebin_adaptive(sim: MPMSim, st: BinState, cfg: BinnedConfig2) -> BinState:
     if cfg.migrate_capacity <= 0:
         return _rebin(sim, st, cfg)
     nst, ok = _rebin_incremental(sim, st, cfg, cfg.migrate_capacity)
-    return nst if bool(ok) else _rebin(sim, st, cfg)
+    return nst if read_host(ok, "rebin_choice") else _rebin(sim, st, cfg)
 
 
 def unbin_state(st: BinState, template: MPMState) -> MPMState:
@@ -534,6 +551,7 @@ class _Ctx:
         return self.grid.cells_per_block
 
 
+@spanned("ctx")
 def _make_ctx(st: BinState, cfg: BinnedConfig2) -> _Ctx:
     grid = st.grid
     table = grid.table
@@ -562,7 +580,7 @@ def _make_ctx(st: BinState, cfg: BinnedConfig2) -> _Ctx:
     # stencil drops them
     xib = (st.cols[:, 0:dim] - grid.origin) / dx
     base = torch.floor(xib - 0.5).to(torch.int32)
-    offs = torch.as_tensor(_OFFS[dim], device=dev)              # [3^d, d]
+    offs = to_device(_OFFS[dim], dev, "ctx_offsets")            # [3^d, d]
     pos = (base - borigin_l)[:, None, :] + offs[None]           # [L, 3^d, d]
     inwin = ((pos >= 0) & (pos < side)).all(-1)
     node = borigin_l[:, None, :] + pos                          # cell index
@@ -584,6 +602,7 @@ def _make_ctx(st: BinState, cfg: BinnedConfig2) -> _Ctx:
                 -t * dx, overflow)
 
 
+@spanned("p2g")
 def _ctx_p2g(ctx: _Ctx, m: torch.Tensor, v: torch.Tensor, A: torch.Tensor):
     """P2G: scatter (m, m v + A (x_i - x_p)) with the stencil weights into
     the ``[nb * 4^d + 1, 1 + d]`` accumulator (the last row takes what
@@ -599,6 +618,7 @@ def _ctx_p2g(ctx: _Ctx, m: torch.Tensor, v: torch.Tensor, A: torch.Tensor):
         acc[:nb * nc, 1:].reshape(nb, nc, d)
 
 
+@spanned("p2g")
 def _ctx_p2g_affine(ctx: _Ctx, Q0: Optional[torch.Tensor],
                     A: torch.Tensor) -> torch.Tensor:
     """P2G of C channels, each a plain part plus an affine part: scatter
@@ -622,6 +642,7 @@ def _ctx_p2g_affine(ctx: _Ctx, Q0: Optional[torch.Tensor],
     return acc[:nb * nc].reshape(nb, nc, C)
 
 
+@spanned("p2g")
 def _ctx_p2g_squared(ctx: _Ctx, Q0: torch.Tensor) -> torch.Tensor:
     """P2G of plain channels ``Q0 [L, C]`` with the squared stencil
     weights: ``node_i = sum_p w_ip^2 Q0_p``, ``[nb, 4^d, C]``.  The row
@@ -640,12 +661,13 @@ def _node_positions(ctx: _Ctx) -> torch.Tensor:
     """World position of every node of the table's blocks ``[nb, 4^d,
     d]``."""
     table = ctx.grid.table
-    corners = torch.as_tensor(_CORNERS[ctx.grid.dim],
-                              device=table.keys.device)
+    corners = to_device(_CORNERS[ctx.grid.dim], table.keys.device,
+                        "node_corners")
     return (table.active_coords[:, None, :] * 4 +
             corners[None]).to(torch.float32) * ctx.dx + ctx.grid.origin
 
 
+@spanned("grid_update")
 def _grid_update(sim: MPMSim, ctx: _Ctx, gm: torch.Tensor,
                  gmv: torch.Tensor, dt):
     """Node velocities: momentum over mass, gravity, colliders at the node
@@ -660,6 +682,7 @@ def _grid_update(sim: MPMSim, ctx: _Ctx, gm: torch.Tensor,
     return gv, torch.sqrt(torch.max(torch.sum(gv * gv, -1)))
 
 
+@spanned("g2p")
 def _ctx_g2p(ctx: _Ctx, gv: torch.Tensor):
     """G2P: (v_new [L, d], C_new [L, d, d]) gathered from the node
     velocities ``gv [nb, 4^d, d]``."""
@@ -713,6 +736,7 @@ def _lanes(st: BinState, ctx: _Ctx):
             torch.where(ctx.alive, cols[:, lay["vol"]], 0.0))
 
 
+@spanned("advance")
 def _advance(sim: MPMSim, st: BinState, ctx: _Ctx, lanes, gm: torch.Tensor,
              gv: torch.Tensor, max_vel: torch.Tensor, dt,
              disp_scale: Optional[Callable[[torch.Tensor], torch.Tensor]]
@@ -787,10 +811,12 @@ def explicit_step_binned2(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
     if rebin:
         st = _rebin(sim, st, cfg)
     ctx = _make_ctx(st, cfg)
-    lanes = _lanes(st, ctx)
-    _, vb, Fb, Cb, m, vol = lanes
-    tau = _lane_model(sim.model, st.pid).kirchhoff(Fb)
-    A = m[:, None, None] * Cb - (dt * ctx.dinv * vol)[:, None, None] * tau
+    with span("stress"):
+        lanes = _lanes(st, ctx)
+        _, vb, Fb, Cb, m, vol = lanes
+        tau = _lane_model(sim.model, st.pid).kirchhoff(Fb)
+        A = m[:, None, None] * Cb - \
+            (dt * ctx.dinv * vol)[:, None, None] * tau
     gm, gmv = _ctx_p2g(ctx, m, vb, A)
     gv, max_vel = _grid_update(sim, ctx, gm, gmv, dt)
     return _advance(sim, st, ctx, lanes, gm, gv, max_vel, dt)
@@ -805,10 +831,10 @@ def adaptive_chain(step_fn: Callable[[BinState], BinState],
     flag costs one device-to-host synchronisation per step."""
     i = 0
     while i < n_steps:
-        while i < n_steps and not bool(st.needs_rebin):
+        while i < n_steps and not read_host(st.needs_rebin, "chain_flag"):
             st = step_fn(st)
             i += 1
-        if bool(st.needs_rebin):
+        if read_host(st.needs_rebin, "chain_flag"):
             st = rebin_fn(st)
     return st
 

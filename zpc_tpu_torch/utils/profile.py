@@ -8,20 +8,82 @@ device that the result's tensors live on (a CPU result needs no wait).
 :func:`trace` is ``torch.profiler`` over the CPU and, where there is a card,
 CUDA activities, written as a Chrome trace; :func:`memory_stats` reads the
 caching allocator's statistics.
+
+The hot path carries named spans and one counter.  :func:`span` (and
+:func:`spanned` for a whole function) records ``zpc.<name>`` as a host
+range in the profiler's own trace, on the clock of the device records,
+while a profiler is running, and is a shared no-op context otherwise.  The
+range is an operator-level record, not ``record_function``'s user range:
+the profiler draws no copy of it on the device's timeline (a user range's
+copy there spans the gaps between the work inside it), so the device
+activity of a trace holds only the work itself, and a range's device time
+(``device_time_total`` of its event) is that of the work launched inside
+it, hand kernels launched outside any operator included.
+:func:`read_host` is the one way the stepping code reads a device value on
+the host, and :func:`to_device` the one way it copies a host table to the
+device; each waits for the device and is counted in :data:`HOST_SYNCS` by
+site.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
+import functools
 import os
 import statistics
 import time
 from typing import Callable, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["Timer", "bench", "trace", "memory_stats"]
+__all__ = ["Timer", "bench", "trace", "memory_stats", "span", "spanned",
+           "read_host", "to_device", "HOST_SYNCS"]
+
+# host syncs of the stepping code (reads and table copies), by site;
+# always on
+HOST_SYNCS: collections.Counter = collections.Counter()
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The range ``zpc.<name>`` in a running profiler's trace; one shared
+    no-op context when no profiler runs (checked at every call)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch._C._profiler._RecordFunctionFast("zpc." + name)
+    return _NO_SPAN
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside :func:`span`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def read_host(t: torch.Tensor, site: str):
+    """``t.item()`` inside the span ``sync.<site>``, counted in
+    :data:`HOST_SYNCS` under ``site``."""
+    HOST_SYNCS[site] += 1
+    with span("sync." + site):
+        return t.item()
+
+
+def to_device(values, device: torch.device, site: str) -> torch.Tensor:
+    """``torch.as_tensor(values, device=device)`` of a host table: on a
+    CUDA device a copy from pageable memory, which waits for the device's
+    queue to drain, so it is counted and spanned as :func:`read_host`'s
+    reads are."""
+    HOST_SYNCS[site] += 1
+    with span("sync." + site):
+        return torch.as_tensor(values, device=device)
 
 
 def _cuda_devices(obj, out):
