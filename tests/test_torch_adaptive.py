@@ -26,6 +26,8 @@ from zpc_tpu_torch.models.constitutive import FixedCorotated
 from zpc_tpu_torch.sim import mpm as TM
 from zpc_tpu_torch.utils import vdb as TV
 
+from _jax_jit import jit
+
 # the cuda test runs where JAX is absent (`pytest --noconftest -m cuda` on
 # the card's machine); every other test needs zpc_tpu
 try:
@@ -54,11 +56,38 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _both(cells, vals, **kw):
+# JAX's grid builds, probes, activations and leaf updates, each one program
+# (they gather and scatter, so compiled they give op by op's values; the
+# samples, which interpolate, run op by op)
+@jit(static_argnames=("dx", "capacities", "background"))
+def _jax_grid(cells, vals, dx, capacities, background=0.0):
+    return JA.adaptive_grid_from_leaves(cells, vals, dx=dx,
+                                        capacities=capacities,
+                                        background=background)
+
+
+@jit
+def _jax_probe(grid, x):
+    return grid.probe(x)
+
+
+@jit
+def _jax_activate(grid, cells):
+    return grid.activate_leaves(cells)
+
+
+@jit
+def _jax_update(grid, cells, vals):
+    return grid.update_leaf_values(cells, vals)
+
+
+def _both(cells, vals, dx, capacities, background=0.0):
     """The same grid in both packages."""
-    jg = JA.adaptive_grid_from_leaves(jnp.asarray(cells), jnp.asarray(vals),
-                                      **kw)
-    tg = TA.adaptive_grid_from_leaves(_t(cells), _t(vals), **kw)
+    jg = _jax_grid(jnp.asarray(cells), jnp.asarray(vals), dx,
+                   tuple(capacities), background)
+    tg = TA.adaptive_grid_from_leaves(_t(cells), _t(vals), dx=dx,
+                                      capacities=capacities,
+                                      background=background)
     return jg, tg
 
 
@@ -98,7 +127,8 @@ def test_probe_leaf_values(rng):
     x = ((cells + 0.5) * dx).astype(np.float32)
     got = tg.probe(_t(x)).numpy()
     np.testing.assert_allclose(got, vals, atol=1e-6)
-    np.testing.assert_array_equal(got, np.asarray(jg.probe(jnp.asarray(x))))
+    np.testing.assert_array_equal(got, np.asarray(_jax_probe(
+        jg, jnp.asarray(x))))
 
 
 def test_probe_everywhere_equals_jax(rng):
@@ -106,14 +136,14 @@ def test_probe_everywhere_equals_jax(rng):
     jg, tg, *_ = _random_grid(rng)
     x = rng.uniform(-3.0, 3.0, (4096, 3)).astype(np.float32)
     np.testing.assert_array_equal(tg.probe(_t(x)).numpy(),
-                                  np.asarray(jg.probe(jnp.asarray(x))))
+                                  np.asarray(_jax_probe(jg, jnp.asarray(x))))
 
 
 def test_probe_background(rng):
     jg, tg, *_ = _random_grid(rng)
     far = np.asarray([[100.0, 100.0, 100.0]], np.float32) * 0.1
     assert float(tg.probe(_t(far))[0]) == -7.0
-    assert float(jg.probe(jnp.asarray(far))[0]) == -7.0
+    assert float(_jax_probe(jg, jnp.asarray(far))[0]) == -7.0
 
 
 def test_probe_inside_leaf_block_unset_cell():
@@ -124,7 +154,7 @@ def test_probe_inside_leaf_block_unset_cell():
                    capacities=[16, 16, 16], background=0.0)
     x = np.asarray([[1.5, 0.5, 0.5]], np.float32)
     assert float(tg.probe(_t(x))[0]) == 0.0
-    assert float(jg.probe(jnp.asarray(x))[0]) == 0.0
+    assert float(_jax_probe(jg, jnp.asarray(x))[0]) == 0.0
 
 
 def test_sample_constant_field(rng):
@@ -150,7 +180,7 @@ def test_update_leaf_values(rng):
     jg, tg, cells, vals, dx = _random_grid(rng)
     new = vals * 3.0 + 1.0
     tg2, ovf = tg.update_leaf_values(_t(cells), _t(new))
-    jg2, jovf = jg.update_leaf_values(jnp.asarray(cells), jnp.asarray(new))
+    jg2, jovf = _jax_update(jg, jnp.asarray(cells), jnp.asarray(new))
     assert not bool(ovf) and not bool(jovf)
     x = _t((cells + 0.5) * dx).float()
     np.testing.assert_allclose(tg2.probe(x).numpy(), new, atol=1e-6)
@@ -163,7 +193,7 @@ def test_update_inactive_cell_flags_overflow(rng):
     c = np.asarray([[500, 500, 500]], np.int32)
     v = np.asarray([1.0], np.float32)
     _, ovf = tg.update_leaf_values(_t(c), _t(v))
-    _, jovf = jg.update_leaf_values(jnp.asarray(c), jnp.asarray(v))
+    _, jovf = _jax_update(jg, jnp.asarray(c), jnp.asarray(v))
     assert bool(ovf) and bool(jovf)
 
 
@@ -171,7 +201,7 @@ def test_activate_extends_topology(rng):
     jg, tg, cells, vals, dx = _random_grid(rng, n=60)
     new_cells = np.asarray([[100, 100, 100], [101, 100, 100]], np.int32)
     tg2, ovf = tg.activate_leaves(_t(new_cells))
-    jg2, jovf = jg.activate_leaves(jnp.asarray(new_cells))
+    jg2, jovf = _jax_activate(jg, jnp.asarray(new_cells))
     assert not bool(ovf) and not bool(jovf)
     _same_levels(jg2, tg2)
     x_old = _t((cells + 0.5) * dx).float()
@@ -192,7 +222,7 @@ def test_activate_capacity_overflow(rng):
     jg, tg = _both(c, v, dx=1.0, capacities=[2, 16, 16])
     many = (rng.integers(0, 400, (64, 3)) * 8).astype(np.int32)
     _, ovf = tg.activate_leaves(_t(many))
-    _, jovf = jg.activate_leaves(jnp.asarray(many))
+    _, jovf = _jax_activate(jg, jnp.asarray(many))
     assert bool(ovf) and bool(jovf)
 
 
@@ -238,7 +268,15 @@ def test_interop_carries_jax_grids(rng):
     ig = interop.adaptive_grid_from_jax(jg, CPU)
     x = rng.uniform(-2.5, 2.5, (512, 3)).astype(np.float32)
     np.testing.assert_array_equal(ig.probe(_t(x)).numpy(),
-                                  np.asarray(jg.probe(jnp.asarray(x))))
+                                  np.asarray(_jax_probe(jg, jnp.asarray(x))))
+
+
+@jit
+def _jax_sdf_collider_step(model, gravity, grid, state, dt):
+    """JAX's MPM step with ``grid``'s SDF as a sticky collider."""
+    sim = JM.MPMSim(model=model, gravity=gravity, colliders=(JCol.Collider(
+        JA.AdaptiveGridLevelSet(grid), JCol.ColliderType.sticky),))
+    return JM.explicit_step(sim, state, dt)
 
 
 def test_sdf_collider_in_mpm(rng):
@@ -278,7 +316,8 @@ def test_sdf_collider_in_mpm(rng):
     for _ in range(3):
         sa = TM.explicit_step(sim_a, sa, 2e-4)
         sb = TM.explicit_step(sim_b, sb, 2e-4)
-        js = JM.explicit_step(jsim, js, jnp.float32(2e-4))
+        js = _jax_sdf_collider_step(jsim.model, jsim.gravity, jag, js,
+                                    jnp.float32(2e-4))
     np.testing.assert_allclose(sa.particles["x"].numpy(),
                                sb.particles["x"].numpy(), atol=5e-4)
     np.testing.assert_allclose(sa.particles["x"].numpy(),

@@ -22,6 +22,8 @@ from zpc_tpu_torch.containers import bvs as TS
 from zpc_tpu_torch.math.rounding import sqrt_rn
 from zpc_tpu_torch.parallel import primitives as TP
 
+from _jax_jit import jit
+
 # the cuda test runs where JAX is absent (`pytest --noconftest -m cuda` on
 # the card's machine); every other test needs zpc_tpu
 try:
@@ -53,6 +55,26 @@ def _np(a):
     return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+@jit(static_argnames=("max_hits", "tile", "extract", "decompose", "cells",
+                     "compact"))
+def _jax_sorted(tree, qlo, qhi, max_hits, **kw):
+    """JAX's banded join as one program (op by op it compiles each of its
+    ops again for every shape)."""
+    return JB.query_overlaps_sorted(tree, qlo, qhi, max_hits, **kw)
+
+
+@jit(static_argnames=("complete",))
+def _jax_build(lo, hi, valid=None, complete=False):
+    kw = {} if valid is None else {"valid": valid}
+    return (JB.build_lbvh_complete if complete else JB.build_lbvh)(lo, hi,
+                                                                   **kw)
+
+
+@jit(static_argnames=("tile",))
+def _jax_nearest_sorted(tree, q, pts, tile):
+    return JB.query_nearest_sorted(tree, q, pts, tile=tile)
+
+
 def _random_boxes(rng, n, size=0.05):
     """tests/test_bvh.py's boxes."""
     c = rng.uniform(0, 1, (n, 3)).astype(np.float32)
@@ -78,9 +100,8 @@ def _brute_sets(lo, hi, qlo, qhi, valid=None):
 
 def _trees(lo, hi, complete=False, valid=None):
     """The JAX tree and the same tree carried to the port."""
-    build = JB.build_lbvh_complete if complete else JB.build_lbvh
-    kw = {} if valid is None else {"valid": jnp.asarray(valid)}
-    jt = build(jnp.asarray(lo), jnp.asarray(hi), **kw)
+    jt = _jax_build(jnp.asarray(lo), jnp.asarray(hi), None if valid is None
+                    else jnp.asarray(valid), complete=complete)
     return jt, interop.lbvh_from_jax(jt, CPU)
 
 
@@ -363,8 +384,8 @@ def test_extract_matches_zpc_tpu_variant(join_scene, extract, mode):
     kw = dict(tile=64, extract=extract)
     if mode != "plain":
         kw.update(decompose=True, cells=int(mode[1]))
-    j = JB.query_overlaps_sorted(s["jt"], jnp.asarray(s["qlo"]),
-                                 jnp.asarray(s["qhi"]), 32, **kw)
+    j = _jax_sorted(s["jt"], jnp.asarray(s["qlo"]), jnp.asarray(s["qhi"]),
+                    32, **kw)
     t = TB.query_overlaps_sorted(s["tt"], _t(s["qlo"]), _t(s["qhi"]), 32,
                                  **kw)
     if mode == "plain":
@@ -396,8 +417,8 @@ def test_extract_window_edges(case):
     h = np.full((n, 3), half, np.float32)
     jt, tt = _trees(c - h, c + h, complete=case == "bitpeel_unaligned")
     qlo, qhi = c[:512] - h[:512] - 0.02, c[:512] + h[:512] + 0.02
-    j = JB.query_overlaps_sorted(jt, jnp.asarray(qlo), jnp.asarray(qhi), 32,
-                                 tile=tile, extract=ex)
+    j = _jax_sorted(jt, jnp.asarray(qlo), jnp.asarray(qhi), 32, tile=tile,
+                    extract=ex)
     for e in (ex, "topk"):
         t = TB.query_overlaps_sorted(tt, _t(qlo), _t(qhi), 32, tile=tile,
                                      extract=e)
@@ -419,7 +440,7 @@ def test_compact_matches_zpc_tpu(join_scene):
                .sum())
     budget = -(-live // 64) * 64
     assert budget < 512 * 8
-    j = JB.query_overlaps_sorted(*args_j, compact=budget, **kw)
+    j = _jax_sorted(*args_j, compact=budget, **kw)
     t = TB.query_overlaps_sorted(*args_t, compact=budget, **kw)
     assert t[0].shape[0] == budget
     ct, bt, st = _same_where_certified(t, j, 512)
@@ -429,7 +450,7 @@ def test_compact_matches_zpc_tpu(join_scene):
     np.testing.assert_array_equal(ct[ok], cu[ok])
     assert [a for a, k in zip(st, ok) if k] == \
         [a for a, k in zip(su, ok) if k]
-    jo = JB.query_overlaps_sorted(*args_j, compact=budget - 64, **kw)
+    jo = _jax_sorted(*args_j, compact=budget - 64, **kw)
     to = TB.query_overlaps_sorted(*args_t, compact=budget - 64, **kw)
     assert not np.asarray(jo[3]).any() and not to[3].any()
     assert torch.unique(to[0]).numel() < 512
@@ -448,8 +469,7 @@ def test_nearest_sorted_certified_exact():
     h = np.full((n, 3), 1e-4, np.float32)
     jt, tt = _trees(pts - h, pts + h, complete=True)
     q = rng.uniform(0.1, 0.9, (1024, 3)).astype(np.float32)
-    jout = JB.query_nearest_sorted(jt, jnp.asarray(q), jnp.asarray(pts),
-                                   tile=64)
+    jout = _jax_nearest_sorted(jt, jnp.asarray(q), jnp.asarray(pts), 64)
     qid, prim, d2, ok = TB.query_nearest_sorted(tt, _t(q), _t(pts), tile=64)
     np.testing.assert_array_equal(qid.numpy(), np.asarray(jout[0]))
     np.testing.assert_array_equal(ok.numpy(), np.asarray(jout[3]))

@@ -29,6 +29,8 @@ import torch
 from zpc_tpu_torch import interop, scenes
 from zpc_tpu_torch.sim import cloth as TC
 
+from _jax_jit import jit
+
 # the cuda test runs where JAX is absent (`pytest --noconftest -m cuda` on
 # the card's machine); every other test needs zpc_tpu
 try:
@@ -217,6 +219,14 @@ def test_self_contact_candidates(nx, mc):
 # window contact, operator
 # ---------------------------------------------------------------------------
 
+@jit(static_argnames=("radius", "max_residue"))
+def _jax_window_residue(sj, cand, radius, max_residue):
+    """JAX's split of the candidates into the window's pairs and the
+    residue, as one program (it sorts and counts: compiled, the same)."""
+    return JC.classify_window_residue(
+        sj, JC.ContactWindow(radius=radius, max_residue=max_residue), cand)
+
+
 @pytest.fixture(scope="module")
 def contact_state():
     """test_window_contact_matches_candidate_set's state: two 8 x 8 layers
@@ -231,7 +241,7 @@ def contact_state():
     assert not bool(ovf) and _sets(ct) == _sets(cj)
     cw_j = JC.ContactWindow(radius=1, max_residue=64)
     cw_t = TC.ContactWindow(radius=1, max_residue=64)
-    rj = JC.classify_window_residue(sj, cw_j, cj)
+    rj = _jax_window_residue(sj, cj, 1, 64)
     rt = TC.classify_window_residue(st, cw_t, ct)
     lam = np.random.default_rng(3).uniform(0, 1, y.shape[0]).astype(
         np.float32)
@@ -380,8 +390,7 @@ def test_bench_window_residue():
     for r, budget in ((1, 1024), (1, 10 ** 6), (2, 1024)):
         vid, _, valid, rovf = TC.classify_window_residue(
             st, TC.ContactWindow(r, budget), cand)
-        _, _, valid_j, rovf_j = JC.classify_window_residue(
-            sj, JC.ContactWindow(r, budget), cj)
+        _, _, valid_j, rovf_j = _jax_window_residue(sj, cj, r, budget)
         assert bool(rovf) == bool(rovf_j)
         assert int(valid.sum()) == int(np.asarray(valid_j).sum())
         if budget > 1024:

@@ -6,8 +6,9 @@ One rank runs in this process (gloo, a ``file://`` rendezvous); 2, 4 and 8
 ranks run as spawned processes (tests/_torch_dist_worker.py, no JAX), one
 group of each size running all its cases, compared with JAX's steps on a
 mesh of the same size from conftest's 8 virtual devices.  Every process
-group has a timeout and every spawned rank a deadline, so a hang fails a
-test and does not hold the suite.
+group has a timeout and every spawned group one deadline that kills all
+its ranks (tests/_spawn.py), so a hang fails a test and does not hold the
+suite.
 
 Tolerances, those of tests/test_distributed.py and
 tests/test_domain_decomp.py: the sharded step x 1e-6, v 1e-5 (the table
@@ -21,7 +22,6 @@ import dataclasses
 import datetime
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -35,6 +35,8 @@ from zpc_tpu_torch.parallel import mesh as TMesh
 from zpc_tpu_torch.sim import distributed as TS
 from zpc_tpu_torch.sim import domain_decomp as TD
 from zpc_tpu_torch.sim import mpm as TM
+
+from _spawn import run_group
 
 # the cuda test runs where JAX is absent (`pytest --noconftest -m cuda` on
 # the card's machine); every other test needs zpc_tpu
@@ -52,7 +54,9 @@ except ImportError:
 CPU = torch.device("cpu")
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORKER = os.path.join(HERE, "_torch_dist_worker.py")
-DEADLINE = 420          # seconds for a spawned group to finish
+# seconds for a spawned group to finish: the group of 8 took ~13 s under
+# the suite's six workers on eight cores, those of 2 and 4 ~5 s
+DEADLINE = 60
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -124,22 +128,8 @@ def _spawn(job, world, cases, arrays):
            if not k.startswith(("XLA_", "JAX_", "MASTER_", "WORLD_SIZE",
                                 "RANK"))}
     env["OMP_NUM_THREADS"] = "1"
-    procs = [subprocess.Popen([sys.executable, WORKER, job, str(world),
-                               str(r)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, env=env, cwd=HERE)
-             for r in range(world)]
-    outs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=DEADLINE)
-            outs.append(out.decode(errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} of {world} failed:\n{out}"
+    run_group([[sys.executable, WORKER, job, str(world), str(r)]
+               for r in range(world)], DEADLINE, env=env, cwd=HERE)
     return [dict(np.load(os.path.join(job, f"out_{i}.npz")))
             for i in range(len(cases))]
 
