@@ -15,6 +15,7 @@ under ``torch.profiler`` and give the per-layer metrics instead.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 from typing import Callable
 
@@ -22,9 +23,9 @@ import torch
 
 from . import check, inputs
 from .peaks import peaks_for
-from .program import Counters, Program
+from .program import Counters, Program, program_counters
 from .spec import BENCH, Cell, load_module
-from .trace import Slice, reduce_profile
+from .trace import Slice, reduce_events
 
 __all__ = ["prepare", "run_cell", "touched_blocks"]
 
@@ -53,10 +54,20 @@ def _mem(dev, what):
     return getattr(torch.cuda, what)(dev)
 
 
+def _device_allocs(dev) -> int:
+    """The caching allocator's count of device allocations so far."""
+    if dev.type != "cuda":
+        return 0
+    return int(torch.cuda.memory_stats(dev).get("num_device_alloc", 0))
+
+
 class _Slice:
     """Starts ``torch.profiler`` before step ``first`` of the traced
     segment and stops it before step ``first + n`` (or at the segment's
-    end), each time after a synchronisation."""
+    end), each time after a synchronisation.  The benchmark's counters
+    are copied at both ends, and so are the program's
+    (:func:`~.program.program_counters`), whose delta over the slice is
+    ``program_counters``."""
 
     def __init__(self, dev, first: int, n: int, counters):
         self.dev, self.first, self.n = dev, first, n
@@ -64,6 +75,7 @@ class _Slice:
         self.i = 0
         self.prof = None
         self.done = None            # (seconds, counters before, after)
+        self.program_counters = None    # "<COUNTER>.<site>" -> delta
 
     def _copy(self):
         c = self.counters()
@@ -77,6 +89,7 @@ class _Slice:
                 torch.profiler.ProfilerActivity.CUDA])
             self.prof.__enter__()
             self.c0 = self._copy()
+            self.p0 = program_counters()
             self.t = time.perf_counter()
         elif self.i == self.first + self.n:
             self.stop()
@@ -87,8 +100,11 @@ class _Slice:
             return
         _sync(self.dev)
         secs = time.perf_counter() - self.t
+        p1 = program_counters()
         self.prof.__exit__(None, None, None)
         self.done = (secs, self.c0, self._copy())
+        self.program_counters = {k: v - self.p0.get(k, 0)
+                                 for k, v in p1.items()}
 
 
 def prepare(cell: Cell, seed: int, dev: torch.device,
@@ -143,8 +159,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     tracker = check.Tracker()
     attempted = failed = 0
     sl = None
-    t_w = time.perf_counter()
+    allocs0 = _device_allocs(dev)
+    gc0 = [g["collections"] for g in gc.get_stats()]
+    seg_log = []                    # (seconds, rebins) of each segment
+    t_w = t_seg = time.perf_counter()
     while True:
+        r_seg = prog.counters.rebins
         if trace and attempted == 1:
             sl = _Slice(dev, min(traffic["trace_from_step"], n_seg - 1),
                         traffic["trace_steps"], lambda: prog.counters)
@@ -153,6 +173,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         if sl is not None:
             sl.stop()
             prog.step_hook = None
+        t = time.perf_counter()
+        seg_log.append((t - t_seg, prog.counters.rebins - r_seg))
+        t_seg = t
         tracker.add(prog.particles(out))
         del out
         attempted += 1
@@ -170,14 +193,18 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     n = shapes["particles"]
     if trace:
         slice_s, c0, c1 = sl.done
-        busy, span_dev, ops, gaps = reduce_profile(sl.prof.events())
-        sl = None
-        view = Slice(window_s=slice_s, busy_s=busy, span_device_s=span_dev,
+        red = reduce_events(sl.prof.events())
+        busy, ops, gaps = red.busy_s, red.ops, red.gaps
+        view = Slice(window_s=slice_s, busy_s=busy,
+                     span_device_s=red.span_device_s,
                      steps=c1.steps - c0.steps, rebins=c1.rebins - c0.rebins,
                      cg_iters=c1.cg_iters[len(c0.cg_iters):],
                      window_steps=counters.steps,
                      window_rebins=counters.rebins, shapes=shapes,
-                     peaks=peaks_for(card))
+                     peaks=peaks_for(card), program_spans=red.program_spans,
+                     program_ranges=red.program_ranges,
+                     counters=sl.program_counters, config=cfg)
+        sl = red = None
         metrics = {}
         for m in cell.per_layer:
             val = cell.readers[m["name"]].read(view)
@@ -189,6 +216,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         dev_extra = {"busy_s": busy, "window_s": slice_s}
         log(f"traced slice: {view.steps} steps, {view.rebins} rebins, "
             f"{slice_s:.4f} s, busy {busy:.4f} s")
+        for k, (cnt, dev_s) in sorted(view.program_spans.items(),
+                                      key=lambda kv: -kv[1][1]):
+            log(f"  span {k}: {cnt} ranges, {1e3 * dev_s:.4f} ms device")
+        log("  program counters " + ", ".join(
+            f"{k} {v}" for k, v in sorted(view.counters.items())))
     else:
         steps_done = attempted * n_seg
         metrics = {
@@ -202,6 +234,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     log(f"window {window_s:.4f} s, {attempted} segments of {n_seg} steps, "
         f"{failed} failed, {counters.rebins} rebins in "
         f"{counters.steps} steps, CG iterations {counters.cg_iters[:40]}")
+    log(f"segments (s, rebins): {[(round(a, 4), b) for a, b in seg_log]}; "
+        f"{_device_allocs(dev) - allocs0} device allocations, garbage "
+        f"collections by generation "
+        f"{[g['collections'] - c for g, c in zip(gc.get_stats(), gc0)]}")
 
     # -- the comparison, after the window and the memory reading ----------
     prog_xvF, delta = tracker.first, tracker.delta

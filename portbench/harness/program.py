@@ -14,12 +14,15 @@ is looked up through its modules at every call, so a test can break the
 timed path underneath.  Where the traffic has contact, the obstacle is
 ``MeshContact.build`` over the benchmark's triangles with the
 configuration's ``dhat``, ``kappa``, ``max_tris`` and join ``tile``.
+:func:`program_counters` reads the program's own counters: every
+``collections.Counter`` that ``zpc_tpu_torch.utils.profile`` exports.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import List
+from typing import Dict, List
 
 import torch
 from torch.profiler import record_function
@@ -31,8 +34,10 @@ from zpc_tpu_torch.sim import contact_implicit as ci
 from zpc_tpu_torch.sim import implicit_binned2 as ib2
 from zpc_tpu_torch.sim import mpm as mpm_mod
 from zpc_tpu_torch.sim import mpm_binned2 as b2
+from zpc_tpu_torch.utils import profile as zprof
 
-__all__ = ["Counters", "Program", "STEP_SPAN", "REBIN_SPAN", "SYNC_SPAN"]
+__all__ = ["Counters", "Program", "program_counters", "STEP_SPAN",
+           "REBIN_SPAN", "SYNC_SPAN"]
 
 STEP_SPAN, REBIN_SPAN, SYNC_SPAN = ("portbench.step", "portbench.rebin",
                                     "portbench.sync")
@@ -43,6 +48,19 @@ class Counters:
     steps: int = 0
     rebins: int = 0
     cg_iters: List[int] = dataclasses.field(default_factory=list)
+
+
+def program_counters() -> Dict[str, int]:
+    """``<COUNTER>.<site>`` -> count, over every ``collections.Counter``
+    named in ``zpc_tpu_torch.utils.profile.__all__`` (``HOST_SYNCS``:
+    host syncs of the stepping code by site); empty where it exports
+    none."""
+    out = {}
+    for name in getattr(zprof, "__all__", ()):
+        c = getattr(zprof, name, None)
+        if isinstance(c, collections.Counter):
+            out.update((f"{name}.{site}", n) for site, n in c.items())
+    return out
 
 
 def _colliders(cfg: dict, dev) -> tuple:

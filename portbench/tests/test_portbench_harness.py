@@ -1,12 +1,17 @@
 """The benchmark's files found by name, its count functions and trace
-reduction against hand sums, the module sets of a run and of the
-references, and the set-up's snapshot left as it was by a segment."""
+reduction against hand sums, the program's spans and counters as the
+readers get them, the module sets of a run and of the references, and
+the set-up's snapshot left as it was by a segment."""
 
+import collections
+import dataclasses
+import importlib.util
 import json
 import math
 import os
 import subprocess
 import sys
+import time
 import types
 
 import pytest
@@ -14,8 +19,10 @@ import torch
 
 from conftest import ROOT, cell_names, tiny
 from portbench.harness import inputs, trace
-from portbench.harness.cell import prepare
+from portbench.harness.cell import _Slice, prepare, run_cell
+from portbench.harness.program import Counters
 from portbench.harness.spec import BENCH, load_cell, load_module
+from zpc_tpu_torch.utils import profile as zprof
 
 
 @pytest.mark.parametrize("name", cell_names())
@@ -63,7 +70,12 @@ def _slice(**kw):
                                                          "rebin": 0.02},
                 steps=100, rebins=4, cg_iters=[], window_steps=600,
                 window_rebins=30,
-                shapes={"particles": 10, "touched_blocks": 2}, peaks=None)
+                shapes={"particles": 10, "touched_blocks": 2}, peaks=None,
+                program_spans={"zpc.p2g": (100, 0.439),
+                               "zpc.stress": (100, 0.118)},
+                counters={"HOST_SYNCS.chain_flag": 100,
+                          "HOST_SYNCS.ctx_offsets": 100,
+                          "HOST_SYNCS.node_corners": 100, "OTHER.x": 7})
     base.update(kw)
     return trace.Slice(**base)
 
@@ -94,6 +106,34 @@ def test_readers_by_hand():
     assert _reader("rebin_device_ms")(empty) is None
     assert _reader("explicit_step_roofline")(
         _slice(peaks=peaks, span_device_s={})) is None
+    # the program's spans and counters
+    assert _reader("host_syncs_per_step")(t) == pytest.approx(3.0)
+    assert _reader("p2g_device_ms")(t) == pytest.approx(4.39)
+    assert _reader("cg_apply_device_ms")(t) is None
+    assert _reader("contact_device_ms")(t) is None
+    ranges = [(0, 10, "zpc.contact.broad", 0.014),
+              (20, 90, "zpc.contact.narrow", 4.5),
+              (30, 40, "zpc.contact.narrow.pairs", 1.0),   # inside: once
+              (40, 80, "zpc.cg.apply", 9.0)]
+    con = _slice(cg_iters=[4, 4], steps=2,
+                 counters={"HOST_SYNCS.cg_poll": 10,
+                           "HOST_SYNCS.chain_flag": 2},
+                 program_spans={"zpc.p2g": (14, 1.0),
+                                "zpc.cg.apply": (10, 0.325)},
+                 program_ranges=ranges)
+    assert _reader("host_syncs_per_step")(con) == pytest.approx(6.0)
+    assert _reader("p2g_device_ms")(con) is None     # not the explicit step
+    assert _reader("cg_apply_device_ms")(con) == pytest.approx(32.5)
+    assert _reader("contact_device_ms")(con) == pytest.approx(
+        1e3 * (0.014 + 4.5) / 2)
+    # nothing to read: nothing reported, never a 0
+    bare = _slice(program_spans={}, counters={"OTHER.x": 3})
+    for name in ("host_syncs_per_step", "p2g_device_ms",
+                 "cg_apply_device_ms", "contact_device_ms"):
+        assert _reader(name)(bare) is None
+    assert _reader("host_syncs_per_step")(_slice(steps=0)) is None
+    assert _reader("p2g_device_ms")(
+        _slice(program_spans={"zpc.p2g": (100, 0.0)})) is None
 
 
 def _ev(name, s, e, dev, device_time=0.0):
@@ -120,6 +160,93 @@ def test_trace_reduction_by_hand():
     ev.append(_ev("k3", 300, 310, "cuda"))          # 210-300: no span
     _, _, _, gaps = trace.reduce_profile(ev)
     assert dict(gaps)["chain"] == pytest.approx(90e-6)
+
+    # the program's ranges, nested, and one device-side copy of a range
+    prog = [_ev("zpc.advance", 60, 105, "cpu", 10.0),
+            _ev("zpc.g2p", 90, 102, "cpu", 5.0),        # inside advance
+            _ev("zpc.p2g", 125, 200, "cpu", 50.0),
+            _ev("zpc.p2g", 125, 215, "cuda"),           # its device copy
+            _ev("zpc.sync.chain_flag", 250, 260, "cpu"),
+            _ev("zpc.rebin.full", 400, 500, "cpu", 7.0),
+            _ev("zpc.rebin.sort", 400, 450, "cpu", 3.0)]   # same start
+    red = trace.reduce_events(ev + prog)
+    busy, span_dev, ops, _ = trace.reduce_profile(ev)
+    assert red.busy_s == busy and red.span_device_s == span_dev
+    assert red.ops == ops
+    assert red.program_spans == {
+        "zpc.advance": (1, pytest.approx(10e-6)),
+        "zpc.g2p": (1, pytest.approx(5e-6)),
+        "zpc.p2g": (1, pytest.approx(50e-6)),
+        "zpc.sync.chain_flag": (1, 0.0),
+        "zpc.rebin.full": (1, pytest.approx(7e-6)),
+        "zpc.rebin.sort": (1, pytest.approx(3e-6))}
+    # 70-130 (middle 100: advance and g2p open, g2p innermost), 180-200
+    # (middle 190: p2g), 210-300 (middle 255: chain, the flag read)
+    assert dict(red.gaps) == {"step/zpc.g2p": pytest.approx(60e-6),
+                              "step/zpc.p2g": pytest.approx(20e-6),
+                              "chain/zpc.sync.chain_flag":
+                              pytest.approx(90e-6)}
+    assert [r[2] for r in red.program_ranges][-2:] == ["zpc.rebin.full",
+                                                       "zpc.rebin.sort"]
+    view = _slice(program_ranges=red.program_ranges)
+    assert view.device_s_under("zpc.rebin.") == pytest.approx(7e-6)
+    assert view.device_s_under("zpc.g2p") == pytest.approx(5e-6)
+    assert view.device_s_under("zpc.contact.") is None
+
+
+def test_the_slice_takes_the_program_counters_over_it_alone(cpu,
+                                                           monkeypatch):
+    syncs = collections.Counter(setup=5)
+    monkeypatch.setattr(zprof, "HOST_SYNCS", syncs)
+    sl = _Slice(cpu, 1, 2, Counters)
+    for i in range(5):
+        sl.hook()                      # the slice is steps 1 and 2
+        syncs["flag"] += 1
+        if i == 2:
+            syncs["table"] += 3
+    sl.stop()
+    syncs["flag"] += 10
+    assert sl.program_counters == {"HOST_SYNCS.setup": 0,
+                                   "HOST_SYNCS.flag": 2,
+                                   "HOST_SYNCS.table": 3}
+    monkeypatch.delattr(zprof, "HOST_SYNCS")
+    sl = _Slice(cpu, 0, 1, Counters)
+    sl.hook()
+    sl.stop()
+    assert sl.program_counters == {}
+
+
+STAND_IN = """
+def read(t):
+    count, device_s = t.program_spans["zpc.p2g"]
+    return (count, device_s, t.counters["HOST_SYNCS.chain_flag"],
+            t.config["particles"], t.steps)
+"""
+
+
+def test_a_new_reader_file_reads_spans_counters_and_sizes(cpu, tmp_path):
+    """A reader file that no harness file names gets the program's span
+    counts and device times, its counters and the configuration."""
+    path = tmp_path / "stand_in.py"
+    path.write_text(STAND_IN)
+    spec = importlib.util.spec_from_file_location("stand_in", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    cell = tiny("elastic_block_256k.freefall", segment_steps=6)
+    metric = {"name": "stand_in", "unit": "x", "better": "lower",
+              "source": "program_span", "layer": "explicit step",
+              "moves": "mpart_steps_per_s"}
+    cell = dataclasses.replace(cell, per_layer=[metric],
+                               readers={"stand_in": mod})
+    res = run_cell(cell, 2 ** 31 + 5, 0.0, True, cpu, time.perf_counter(),
+                   "cpu")
+    count, device_s, flags, particles, steps = \
+        res["metrics"]["stand_in"]["value"]
+    # steps 0-5 of the second segment: a p2g range and a flag read each
+    assert steps == 6 and count == 6 and flags == 6
+    assert device_s == 0.0                   # no device on the CPU
+    assert particles == 4096
+    assert res["correct"], res["check"]
 
 
 _SCRIPT = """
