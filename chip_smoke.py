@@ -26,8 +26,9 @@ caught):
 
 1. environment: torch and CUDA versions, the card's name and power limit;
    fails when no CUDA device is visible;
-2. build: compiles the CUDA kernels from csrc/ with nvcc (sm_90a), one
-   nvcc per source, all started together, and prints each kernel's
+2. build: compiles the CUDA kernels from csrc/ with nvcc (sm_90a; the
+   mesh barrier with -fmad=false), one nvcc per source, all started
+   together, and prints each kernel's
    registers, shared memory and spills as ptxas reports them;
 3. kernel against plain: the scan kernel against its plain PyTorch version
    on the card, every dtype and op, n from 1 to 16M + 7 (the main path's
@@ -103,20 +104,31 @@ caught):
    unchanged, grid mass within 1e-4, the broad phase's hits, counts and
    band flags equal to the CPU port's on the same bin state, the mean v_y
    of the particles within dhat of the floor after one step above the
-   contact-free step's, no particle below the floor; then the chain best
-   of 3 beside phase 13's;
-17. BASELINE config 5's contact rows as specified: the bench's
-   heightfields of 2,048 and 100,352 triangles under the same block,
-   each with its overflow flag (printed, not gated; equal to the CPU
-   port's on the same bin state), its live bins truncated and out of
-   band, CG iterations and ms/step best of 3 of a 10-step chain; gated on
-   finite columns and mass;
+   contact-free step's, no particle below the floor, one mesh barrier
+   launch a step with contact and none without; then the chain best of 3
+   beside phase 13's;
+17. BASELINE config 5's contact rows at the benchmark's settings: the
+   bench's heightfields of 2,048 and 100,352 triangles under the same
+   block, with max_tris 32 and 648 and the join's tile 3072
+   (portbench/configs/implicit_block_1m*.json), each gated on no overflow
+   (no live bin truncated or out of band, the flag equal to the CPU
+   port's on the same bin state, and unset after one step), finite
+   columns and mass; CG iterations and ms/step best of 3 of a 10-step
+   chain, with one mesh barrier launch a step; then the mesh barrier
+   kernel (csrc/mesh_barrier.cu) replayed against its plain version on
+   the CPU on the row's first contact set (the work counts equal; forces
+   and Hessians within (2 n + 16) 2^-24 of each entry's sum of term
+   magnitudes over the lane's n candidates: the sums' order), the plain
+   version on the card's widest gaps printed, and the kernel's device
+   time and back-to-back time per call beside the plain version's on the
+   card and the least time the benchmark's roofline counts;
 18. contact card against CPU: tests/test_contact_implicit.py's 100-step
    scene (512 particles, dx 0.05, 96 bins, floor at 0.2, dhat 0.02, kappa
    2e4, max_tris 4, use_ccd, dt 2e-3) for 20 steps, then one
    contact_precond step, on CUDA and on the CPU (CG iterations equal
    within 1; x, v, F within phase 14's tolerances plus the CPU's own
-   spread over summation order; no particle below floor - dhat);
+   spread over summation order; no particle below floor - dhat; one mesh
+   barrier launch a step on the card, none on the CPU);
 19. BASELINE config 1 through ``zpc_tpu_torch.tpu_exec()`` at 1,048,576
    and 16,777,216 elements (``default_rng(0)``): reduce (f32 add, int32
    add, min, max), both scans (f32, int32), sort and radix_sort (full
@@ -278,7 +290,8 @@ caught):
 The scan's launches in the kernel record are those of phases 4, 10, 12,
 13, 16, 19, 20, 21, 24, 26, 32-34 and 36-38, NSE's those of phases 7 and
 32-34 (a line before gives them per path, with phases 27-31's, which
-launch neither kernel).  The last two lines are the kernel record and the
+launch neither kernel), the mesh barrier's those of phases 16-18 (one a
+narrow phase; none elsewhere, checked).  The last two lines are the kernel record and the
 contract line ``{"ok": true, "device": {...}}``.
 """
 
@@ -311,6 +324,7 @@ from zpc_tpu_torch import _kernels, scenes  # noqa: E402
 from zpc_tpu_torch.containers import block_table  # noqa: E402
 from zpc_tpu_torch.containers import bvh as bvh_mod  # noqa: E402
 from zpc_tpu_torch.containers import bvs as bvs_mod  # noqa: E402
+from zpc_tpu_torch.ops import mesh_barrier as barrier_op  # noqa: E402
 from zpc_tpu_torch.ops import nse as nse_op  # noqa: E402
 from zpc_tpu_torch.ops import scan as scan_op  # noqa: E402
 from zpc_tpu_torch.geometry import ccd_tight, dihedral  # noqa: E402
@@ -399,6 +413,8 @@ N_POISSON, POISSON_ITERS, N_POISSON_SMALL = 128, 100, 32
 # CPU
 FLOOR_Y = 0.57
 TERRAIN_RES = (32, 224)
+# (max_tris, join tile) of each heightfield in the benchmark's configurations
+TERRAIN_CONTACT = {32: (32, 3072), 224: (648, 3072)}
 N_CSMALL, CSMALL_STEPS, CSMALL_FLOOR, CSMALL_DHAT = 512, 20, 0.2, 0.02
 # BASELINE config 1 (reduce / scan / sort on a 1M-element Vector) and the
 # second size of BENCHMARKS.md's primitive rows; the 7-point Laplacian's
@@ -657,8 +673,9 @@ def build():
         op.build()
         return time.perf_counter() - t0
     # one nvcc per source, all started together
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        secs = dict(zip(("scan", "nse"), pool.map(timed, (scan_op, nse_op))))
+    ops = {"scan": scan_op, "nse": nse_op, "mesh_barrier": barrier_op}
+    with concurrent.futures.ThreadPoolExecutor(len(ops)) as pool:
+        secs = dict(zip(ops, pool.map(timed, ops.values())))
     for name, sec in secs.items():
         print(f"  {name}.cu built and loaded in {sec:.2f} s", flush=True)
         for kernel, regs, smem, spill in _ptxas_lines(
@@ -1725,7 +1742,7 @@ def _bin_query_cpu(tri, mc, bst, cfg):
     bin state copied."""
     cpu = torch.device("cpu")
     mcc = ci.MeshContact.build(tri.cpu(), mc.dhat, mc.kappa,
-                               max_tris=mc.max_tris)
+                               max_tris=mc.max_tris, tile=mc.tile)
     return _bin_query(mcc, _to_device(bst, cpu), cfg)
 
 
@@ -1779,7 +1796,7 @@ def contact_path(dev, card, free_ms):
         rebins[0] += 1
         return b2.rebin_adaptive(sim, s, cfg)
 
-    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    scan_op.LAUNCHES = nse_op.LAUNCHES = barrier_op.LAUNCHES = 0
     with recorded_scans() as calls:
         bst = b2.bin_state(sim, st, cfg)
         torch.cuda.synchronize()
@@ -1798,6 +1815,7 @@ def contact_path(dev, card, free_ms):
     launches = scan_op.LAUNCHES
     check(nse_op.LAUNCHES == 0, "the contact path launched no NSE kernel "
                                 "(its tree is the complete one)")
+    _barrier_launches(1 + len(iters), "the contact path's steps")
     print(f"  one step: {it0} CG iterations; {IMP_CHAIN}-step chain: CG "
           f"iterations per step {iters}, {rebins[0]} rebins; scan launches "
           f"{launches}: {launches_bin} in bin_state, {launches_chain} in "
@@ -1833,6 +1851,8 @@ def contact_path(dev, card, free_ms):
                                         cg_tol=CG_TOL, rebin=False,
                                         with_stats=True)
     peak_free = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+    _barrier_launches(1 + len(iters), "the contact-free step launched none: "
+                                      "the contact path's steps")
     print(f"  peak device memory one step allocates above what was held: "
           f"{peak:.4f} GiB with contact, {peak_free:.4f} GiB without "
           f"({card})", flush=True)
@@ -1850,6 +1870,8 @@ def contact_path(dev, card, free_ms):
     times, outs = _timed_chains(step, rebin, bst)
     check(not any(bool(o.overflow) for o in outs),
           "timed chains: no overflow")
+    barrier = _barrier_launches(1 + len(iters), "the contact path's steps "
+                                                "with the timed chains")
     ms = min(times)
     print(f"  {IMP_CHAIN}-step chain best of 3: {ms:.4f} ms/step = "
           f"{N_IMP / ms / 1e3:.4f} M particle-steps/s (chains "
@@ -1857,27 +1879,125 @@ def contact_path(dev, card, free_ms):
           f"per step {iters[-IMP_CHAIN:]}); phase 13 without contact "
           f"{free_ms:.4f} ms/step: contact costs {ms - free_ms:.4f} ms a "
           f"step ({card})", flush=True)
-    return launches
+    return launches, barrier
+
+
+def _barrier_launches(steps, what):
+    """Checks one mesh barrier launch a narrow phase (``steps`` implicit
+    steps with contact since the count was zeroed); returns the count."""
+    check(barrier_op.LAUNCHES == steps,
+          f"{what}: {barrier_op.LAUNCHES} mesh barrier launches in {steps} "
+          f"narrow phases")
+    return barrier_op.LAUNCHES
+
+
+def _barrier_gap(name, got, want, mag, n):
+    """The worst of |got - want| over its bound ``(2 n + 16) 2^-24 mag``:
+    two float32 sums of a lane's n terms in two orders, each term rounded
+    a few times apart, differ by at most that (``mag``: the sum of the
+    terms' magnitudes, ``n`` the lane's candidates)."""
+    g, w, m = (t.flatten(2).double().cpu() for t in (got, want, mag))
+    bound = (2.0 * n.cpu()[:, None, None].double() + 16.0) * 2.0 ** -24 * m
+    err = (g - w).abs()
+    ratio = torch.where(err > 0, err / bound, 0.0)
+    b, lane, e = np.unravel_index(int(ratio.argmax()), ratio.shape)
+    print(f"    {name}: worst at bin {b}, lane {lane}, entry {e}: "
+          f"{g[b, lane, e]:.9g} against {w[b, lane, e]:.9g}, sum of "
+          f"magnitudes {m[b, lane, e]:.9g}, {int(n[b])} candidates",
+          flush=True)
+    return ratio.max().item()
+
+
+def _barrier_replay(mc, bst, cfg, card):
+    """The mesh barrier kernel against its plain version on the CPU (the
+    same rounding of each pair, the same order of sums), on the contact
+    set of ``bst``'s broad phase; prints the kernel's and the plain
+    version's times on the card."""
+    ctx = b2._make_ctx(bst, cfg)
+    alive = ctx.alive.view(cfg.bins_capacity, b2.K)
+    xb = bst.cols[:, 0:3].view(cfg.bins_capacity, b2.K, 3)   # a view
+    hits = mc.broad_phase(ctx, alive).hits
+    args = (xb, alive, hits, mc.tri, mc.dhat, mc.kappa)
+    cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                     for a in args)
+    n0 = barrier_op.LAUNCHES
+    fc, Hc, work = barrier_op.mesh_barrier(*args)
+    check(barrier_op.LAUNCHES == n0 + 1, "one mesh barrier launch a call")
+    ncand = (hits >= 0).sum(1)
+    mag_f, mag_H = barrier_op.term_magnitudes(*cpu_args)
+    pfc, pHc, pwork = barrier_op.mesh_barrier_reference(*cpu_args)
+    check(torch.equal(work.cpu(), pwork),
+          f"work counts equal the plain version's: pairs {int(work[0]):,}, "
+          f"lanes in reach {int(work[1]):,}, candidates {int(work[2]):,}, "
+          f"active pairs (d < dhat) {int(work[3]):,}")
+    worst = max(_barrier_gap("fc", fc, pfc, mag_f, ncand),
+                _barrier_gap("Hc", Hc, pHc, mag_H, ncand))
+    check(worst <= 1.0, f"forces and Hessians = the plain version's on the "
+                        f"CPU within (2 n + 16) 2^-24 of each entry's sum "
+                        f"of magnitudes (worst {worst:.4f} of that)")
+    # torch's CUDA operators round a pair's d^2 an ulp apart from these
+    # (the CPU's and the kernel's agree), and near d = dhat a term carries
+    # (d^2 - dhat^2)^2, whose relative rounding there has no bound: printed
+    cfc, cHc, _ = barrier_op.mesh_barrier_reference(*args)
+    print("  the plain version on the card, widest gaps to the kernel over "
+          "the largest entry: " + ", ".join(
+              f"{k} {((a - b).abs().max() / b.abs().max()).item():.3e}"
+              for k, a, b in (("fc", fc, cfc), ("Hc", Hc, cHc))),
+          flush=True)
+    # two device activities a call: the kernel and the zeroing of its
+    # four work counters
+    kern = split(f"mesh barrier kernel, {mc.tri.shape[0]} triangles, "
+                 f"max_tris {mc.max_tris}", lambda: barrier_op.mesh_barrier(
+                     *args), card, kernel=False)
+    kern["plain_ms"] = cuda_ms(
+        lambda: barrier_op.mesh_barrier_reference(*args), 5, warmup=1)
+    kern["worst_of_bound"] = worst
+    kern.update(_barrier_bound(work, xb.shape[0] * xb.shape[1], card))
+    print(f"  plain version on the card: {kern['plain_ms']:.4f} ms a call; "
+          f"least time {kern['bound_ms']:.6f} ms ({kern['bound_by']}-bound, "
+          f"portbench/metrics/contact_narrow_roofline.py's count): "
+          f"{100 * kern['bound_ms'] / kern['device_ms']:.2f}% of it "
+          f"({card})", flush=True)
+    return kern
+
+
+def _barrier_bound(work, lanes, card):
+    """The least time of one narrow phase that did ``work`` (pairs, lanes,
+    tris, active) over ``lanes`` lanes, counted as the benchmark's
+    ``contact_narrow_roofline`` counts it, at the card's published
+    peaks."""
+    from portbench.harness.peaks import peaks_for
+    roof = importlib.import_module("portbench.metrics.contact_narrow_roofline")
+    peaks = peaks_for(card)
+    w = dict(zip(roof.KEYS, (int(v) for v in work)))
+    flop_s = (w["tris"] * roof.FLOPS_PER_TRI + w["pairs"] *
+              roof.FLOPS_PER_PAIR + w["active"] * roof.FLOPS_PER_ACTIVE) / \
+        peaks["fp32_flop_per_s"]
+    least = roof.least_seconds(1, lanes, w, peaks)
+    return {"bound_ms": 1e3 * least,
+            "bound_by": "flops" if least == flop_s else "bytes"}
 
 
 def config5_rows(dev, card):
-    phase("17 config 5's contact rows as specified")
+    phase("17 config 5's contact rows at the benchmark's settings")
+    launches = {}
     for res in TERRAIN_RES:
         tri = scenes.terrain_mesh(res, dev)
         sim, st, dt, cfg, mc = scenes.contact_block(N_IMP, tri, dev)
+        max_tris, tile = TERRAIN_CONTACT[res]
+        mc = dataclasses.replace(mc, max_tris=max_tris, tile=tile)
         m0 = st.particles["m"].double().sum().item()
         bst = b2.bin_state(sim, st, cfg)
         counts = _query_counts(mc, _bin_query(mc, bst, cfg))
         counts_c = _query_counts(mc, _bin_query_cpu(tri, mc, bst, cfg))
-        flag = counts[5]
-        check(flag == counts_c[5],
-              f"{tri.shape[0]} triangles: the overflow flag on the card "
-              f"({flag}) = the CPU port's on the same bin state; live bins "
-              f"{counts[0]}, {counts[1]} with a triangle in reach, "
-              f"{counts[2]} truncated (> {mc.max_tris} candidates), "
-              f"{counts[3]} out of band, at most {counts[4]} candidates "
-              f"(CPU: {counts_c[:5]})")
+        check(counts == counts_c and not counts[5],
+              f"{tri.shape[0]} triangles, max_tris {max_tris}, tile {tile}: "
+              f"no overflow, as on the CPU port on the same bin state; live "
+              f"bins {counts[0]}, {counts[1]} with a triangle in reach, "
+              f"{counts[2]} truncated, {counts[3]} out of band, at most "
+              f"{counts[4]} candidates")
         iters = []
+        barrier_op.LAUNCHES = 0
 
         def step(s):
             out, it = ib2.implicit_step_binned2(
@@ -1886,20 +2006,26 @@ def config5_rows(dev, card):
             iters.append(it)
             return out
         one = step(bst)
-        print(f"  one step: overflow flag {bool(one.overflow)} (printed, "
-              f"not gated), {iters[0]} CG iterations", flush=True)
+        check(not bool(one.overflow), f"one step: no overflow, {iters[0]} "
+                                      f"CG iterations")
         _mass_gates(one, m0, N_IMP, f"{tri.shape[0]} triangles, one step")
         times, outs = _timed_chains(
             step, lambda s: b2.rebin_adaptive(sim, s, cfg), bst)
-        check(all(bool(torch.isfinite(o.cols).all()) for o in outs),
-              f"{tri.shape[0]} triangles: the chains' columns finite")
+        check(all(bool(torch.isfinite(o.cols).all()) and
+                  not bool(o.overflow) for o in outs),
+              f"{tri.shape[0]} triangles: the chains' columns finite, no "
+              f"overflow")
+        launches[res] = _barrier_launches(
+            len(iters), f"{tri.shape[0]} triangles, one step and the chains")
         ms = min(times)
         print(f"  config 5 + LBVH contact, {tri.shape[0]} triangles: "
               f"{ms:.4f} ms/step best of 3 = {N_IMP / ms / 1e3:.4f} M "
               f"particle-steps/s (chains "
               f"{', '.join(f'{t:.4f}' for t in times)} ms/step; CG "
-              f"iterations per step {iters[-IMP_CHAIN:]}; overflow "
-              f"{flag}; {card})", flush=True)
+              f"iterations per step {iters[-IMP_CHAIN:]}; {card})",
+              flush=True)
+        kern = _barrier_replay(mc, bst, cfg, card)
+    return launches, kern
 
 
 def _contact_small(dev, reverse=False):
@@ -1946,9 +2072,13 @@ def _contact_small(dev, reverse=False):
 
 def contact_card_vs_cpu(dev):
     phase("18 contact card against CPU, same port")
+    barrier_op.LAUNCHES = 0
     g, gp, g_it, gy = _contact_small(dev)
+    launches = _barrier_launches(len(g_it), "the card's steps")
     c, cp, c_it, cy = _contact_small(torch.device("cpu"))
     r, rp, r_it, _ = _contact_small(torch.device("cpu"), reverse=True)
+    _barrier_launches(len(g_it), "the CPU's plain version launched none: "
+                                 "the card's steps")
     print(f"  CG iterations per step ({CSMALL_STEPS} steps, then the "
           f"contact_precond step): card {g_it}, CPU {c_it}, CPU reversed "
           f"{r_it}", flush=True)
@@ -1966,6 +2096,7 @@ def contact_card_vs_cpu(dev):
             check(err <= TOL_IMP[k] + spread,
                   f"{what}: {k} max abs diff {err:.3g} <= {TOL_IMP[k]} + the "
                   f"CPU's own spread over summation order {spread:.3g}")
+    return launches
 
 
 def _same(got, ref, what):
@@ -4235,9 +4366,10 @@ def main():
     imp_launches, imp_ms = implicit_path(dev, card)
     implicit_card_vs_cpu(dev)
     poisson(dev, card)
-    contact_launches = contact_path(dev, card, imp_ms)
-    config5_rows(dev, card)
-    contact_card_vs_cpu(dev)
+    _barrier_launches(0, "phases 3-15 (no mesh contact)")
+    contact_launches, barrier_16 = contact_path(dev, card, imp_ms)
+    barrier_17, barrier_t = config5_rows(dev, card)
+    barrier_18 = contact_card_vs_cpu(dev)
     config1_launches, _ = config1(dev, card)
     container_launches = containers_path(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4296,6 +4428,15 @@ def main():
     print(f"  scan launches per path: {per_path}; total "
           f"{sum(per_path.values())}", flush=True)
     launches = sum(per_path.values())
+    _barrier_launches(barrier_18, "phases 19-38 (no mesh contact) launched "
+                                  "none: phase 18's card steps")
+    barrier_paths = {"mesh contact (phase 16)": barrier_16,
+                     **{f"config 5, terrain res {r} (phase 17)": n
+                        for r, n in barrier_17.items()},
+                     "contact card against CPU (phase 18)": barrier_18}
+    print(f"  mesh barrier launches per path (one a narrow phase): "
+          f"{barrier_paths}; total {sum(barrier_paths.values())}",
+          flush=True)
     scan_t, lib_t = times[327_680], times["library"]
     # ms: back-to-back time per call; device_ms: the profiler's device time
     # per call.  bound: each input read once and each output written once,
@@ -4319,7 +4460,20 @@ def main():
         "kernels_per_call": nse_t["kernels_per_call"],
         "plain_ms": nse_t["plain_ms"],
         "bound_ms": 8 * (N_BVH - 1) / HBM_BYTES_PER_MS, "bound_by": "bytes",
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        # at the 100,352-triangle terrain's contact set (phase 17); the
+        # bound counts the benchmark's contact_narrow_roofline way
+        "name": "mesh_barrier", "route": "cuda",
+        "source": "zpc_tpu_torch/csrc/mesh_barrier.cu",
+        "replaces": "zpc_tpu/sim/contact_implicit.py:123 (dense XLA)",
+        "launches": sum(barrier_paths.values()),
+        "worst_of_bound": barrier_t["worst_of_bound"],
+        "ms": barrier_t["ms"], "device_ms": barrier_t["device_ms"],
+        "kernels_per_call": barrier_t["kernels_per_call"],
+        "plain_ms": barrier_t["plain_ms"],
+        "bound_ms": barrier_t["bound_ms"],
+        "bound_by": barrier_t["bound_by"], "library_ms": None}]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -7,14 +7,18 @@
   build_lbvh_complete`) finds every candidate, through the banded join
   :func:`~zpc_tpu_torch.containers.bvh.query_overlaps_sorted` with one
   shared extent.  The result is a dense ``[B, max_tris]`` triangle list.
-* **Dense narrow phase.**  Every (lane, candidate slot) pair evaluates the
-  point-triangle closest point, all slots at once over ``[B, K,
-  max_tris]``.  The barrier force uses the envelope gradient ``grad d^2 =
-  2 (p - closest)``, the Hessian its Gauss-Newton PSD part ``b''(d^2)
-  grad d^2 grad d^2^T`` (the ``b' hess d^2`` term is dropped), summed over
-  the slots as one batched ``[3, max_tris] x [max_tris, 3]`` product per
-  lane, so no ``[L, max_tris, 3, 3]`` intermediate is formed.  The JAX
-  package sums slot by slot; the sums here are reassociated.
+* **Narrow phase per bin.**  Every live lane against its bin's candidate
+  triangles: the point-triangle closest point, the barrier force from the
+  envelope gradient ``grad d^2 = 2 (p - closest)``, the Hessian its
+  Gauss-Newton PSD part ``b''(d^2) grad d^2 grad d^2^T`` (the ``b' hess
+  d^2`` term is dropped), summed over the candidates
+  (:func:`~zpc_tpu_torch.ops.mesh_barrier.mesh_barrier`: one hand kernel
+  on the card, a block at a time on the CPU; the JAX package evaluates
+  every ``[B, K, max_tris]`` slot at once and sums slot by slot).  The
+  energy and the CCD take every bin's candidate slots a few columns at a
+  time, so that their memory is bounded and they read nothing back to the
+  host.  While a profiler runs, the work of each narrow phase is added to
+  :data:`~zpc_tpu_torch.utils.profile.CONTACT_WORK` on the device.
 * **Capacity contract.**  More than ``max_tris`` candidates near a live
   bin, or a live bin's query that the banded join cannot certify (out of
   band), set the overflow flag for the host; nothing raises.
@@ -32,9 +36,10 @@ from typing import NamedTuple
 import torch
 
 from ..containers.bvh import LBvh, build_lbvh_complete, query_overlaps_sorted
-from ..geometry.contact import barrier, barrier_grad, barrier_hess
+from ..geometry.contact import barrier
 from ..geometry.distance import point_triangle_ccd, point_triangle_closest
-from ..utils.profile import spanned
+from ..ops import mesh_barrier as _barrier
+from ..utils.profile import add_contact_work, spanned
 from .mpm_binned2 import SIDE, K
 
 __all__ = ["MeshContact", "ContactSet"]
@@ -97,7 +102,9 @@ class MeshContact:
         cen = borigin.to(torch.float32) * dx + ctx.grid.origin + half
         ext = (half + self.dhat) * (1.0 + 1e-5)
         far = 1e9
-        T = self.tile
+        # fewer bins than a tile make one tile of B queries: the same leaf
+        # window and answers as a padded tile, without its far queries
+        T = min(self.tile, B)
         nq = -(-B // T) * T
         pts = torch.cat([torch.where(bin_live[:, None], cen, far),
                          torch.full((nq - B, 3), far, dtype=torch.float32,
@@ -115,63 +122,58 @@ class MeshContact:
         return bin_live, hits_b[:B], cnt_b[:B], band_b[:B]
 
     # -- narrow phase -------------------------------------------------------
-    def _candidates(self, cset: ContactSet):
-        """(valid [B, max_tris], vertices [B, max_tris, 3, 3])."""
-        M = self.tri.shape[0]
-        idx = cset.hits
-        return idx >= 0, self.tri[idx.clamp(0, M - 1).long()]
-
-    def _pairwise(self, cset: ContactSet, xb, lane_alive):
-        """(active [B, K, T], diff [B, K, T, 3], d2 [B, K, T]) over every
-        lane and candidate slot."""
-        tvalid, tv = self._candidates(cset)
-        _, cl = point_triangle_closest(
-            xb[:, :, None, :], tv[:, None, :, 0], tv[:, None, :, 1],
-            tv[:, None, :, 2])
-        diff = xb[:, :, None, :] - cl
-        d2 = torch.sum(diff * diff, -1)
-        act = tvalid[:, None, :] & lane_alive[..., None] & \
-            (d2 < self.dhat * self.dhat)
-        return act, diff, d2
-
     @spanned("contact.narrow")
     def forces_and_hessians(self, cset: ContactSet, xb: torch.Tensor,
                             lane_alive: torch.Tensor):
         """Barrier force [B, K, 3] and GN-PSD position Hessian [B, K, 3,
         3]."""
-        B, Kk, _ = xb.shape
-        dhat2 = self.dhat * self.dhat
-        act, diff, d2 = self._pairwise(cset, xb, lane_alive)
-        bg = torch.where(act, barrier_grad(d2, dhat2, self.kappa), 0.0)
-        bh = torch.where(
-            act, torch.clamp_min(barrier_hess(d2, dhat2, self.kappa), 0.0),
-            0.0)
-        fc = -((2.0 * bg)[..., None] * diff).sum(2)
-        T = diff.shape[2]
-        u = ((4.0 * bh)[..., None] * diff).view(B * Kk, T, 3)
-        Hc = torch.bmm(u.transpose(1, 2), diff.reshape(B * Kk, T, 3))
-        return fc, Hc.view(B, Kk, 3, 3)
+        fc, Hc, work = _barrier.mesh_barrier(xb, lane_alive, cset.hits,
+                                             self.tri, self.dhat, self.kappa)
+        add_contact_work(work)
+        return fc, Hc
+
+    def _columns(self, cset: ContactSet, xb, lane_alive):
+        """Every bin's candidate slots, a block of columns of ``hits`` at a
+        time (at most ``PAIRS`` (lane, slot) pairs, one column at least):
+        (lanes [B, K, 1, 3], live pairs [B, K, c], corners a, b, c [B, 1,
+        c, 3]).  No host read."""
+        B = lane_alive.shape[0]
+        step = max(1, _barrier.PAIRS // (B * K))
+        p = xb[:, :, None]
+        for s in range(0, cset.hits.shape[1], step):
+            ids = cset.hits[:, s:s + step]
+            tv = self.tri[ids.clamp_min(0).long()][:, None]
+            live = lane_alive[:, :, None] & (ids >= 0)[:, None]
+            yield p, live, tv[..., 0, :], tv[..., 1, :], tv[..., 2, :]
 
     def energy(self, cset: ContactSet, xb: torch.Tensor,
                lane_alive: torch.Tensor) -> torch.Tensor:
         """Total barrier energy (line search, diagnostics)."""
-        act, _, d2 = self._pairwise(cset, xb, lane_alive)
-        return torch.where(act, barrier(d2, self.dhat * self.dhat,
-                                        self.kappa), 0.0).sum()
+        dhat2 = self.dhat * self.dhat
+        total = xb.new_zeros(())
+        for p, live, a, b, c in self._columns(cset, xb, lane_alive):
+            _, cl = point_triangle_closest(p, a, b, c)
+            diff = p - cl
+            d2 = torch.sum(diff * diff, -1)
+            act = live & (d2 < dhat2)
+            total = total + torch.where(
+                act, barrier(d2, dhat2, self.kappa), 0.0).sum()
+        return total
 
     @spanned("contact.ccd")
     def toi(self, cset: ContactSet, xb: torch.Tensor, dxb: torch.Tensor,
             lane_alive: torch.Tensor, min_sep: float = 1e-4) -> torch.Tensor:
         """Per-lane conservative time of impact in (0, 1] ``[B, K]`` of the
         displacement ``dxb`` against the candidate triangles (additive
-        conservative advancement over every slot at once)."""
-        tvalid, tv = self._candidates(cset)
-        shape = xb.shape[:2] + (tv.shape[1], 3)
-        zero3 = xb.new_zeros(()).expand(shape)
-        ti = point_triangle_ccd(
-            xb[:, :, None, :].expand(shape), tv[:, None, :, 0].expand(shape),
-            tv[:, None, :, 1].expand(shape), tv[:, None, :, 2].expand(shape),
-            dxb[:, :, None, :].expand(shape), zero3, zero3, zero3,
-            min_sep=min_sep)
-        ok = tvalid[:, None, :] & lane_alive[..., None]
-        return torch.where(ok, ti, 1.0).amin(-1)
+        conservative advancement, a block of candidate slots at a
+        time)."""
+        out = xb.new_ones(xb.shape[:2])
+        for p, live, a, b, c in self._columns(cset, xb, lane_alive):
+            shape = live.shape + (3,)
+            zero3 = p.new_zeros(()).expand(shape)
+            ti = point_triangle_ccd(
+                p.expand(shape), a.expand(shape), b.expand(shape),
+                c.expand(shape), dxb[:, :, None].expand(shape), zero3,
+                zero3, zero3, min_sep=min_sep)
+            out = torch.minimum(out, torch.where(live, ti, 1.0).amin(-1))
+        return out

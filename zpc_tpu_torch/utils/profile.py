@@ -22,7 +22,9 @@ it, hand kernels launched outside any operator included.
 :func:`read_host` is the one way the stepping code reads a device value on
 the host, and :func:`to_device` the one way it copies a host table to the
 device; each waits for the device and is counted in :data:`HOST_SYNCS` by
-site.
+site.  :data:`CONTACT_WORK` counts the mesh contact's narrow-phase work on
+the device while a profiler runs, as the spans appear then
+(:func:`add_contact_work`), with no host read.
 """
 
 from __future__ import annotations
@@ -40,11 +42,21 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 
 __all__ = ["Timer", "bench", "trace", "memory_stats", "span", "spanned",
-           "read_host", "to_device", "HOST_SYNCS"]
+           "read_host", "to_device", "add_contact_work", "HOST_SYNCS",
+           "CONTACT_WORK"]
 
 # host syncs of the stepping code (reads and table copies), by site;
 # always on
 HOST_SYNCS: collections.Counter = collections.Counter()
+
+# the mesh contact's narrow phases under a profiler, summed: "pairs" (live
+# lanes x candidates over live bins), "lanes" (live lanes of bins with a
+# candidate), "tris" (candidates of live bins), "active" (the pairs with
+# d^2 < dhat^2).  Each value is a 0-d int64
+# tensor on the device, replaced by a new one at every narrow phase (never
+# added to in place, so a copy of the counter taken earlier keeps its
+# values)
+CONTACT_WORK: collections.Counter = collections.Counter()
 
 _NO_SPAN = contextlib.nullcontext()
 
@@ -74,6 +86,16 @@ def read_host(t: torch.Tensor, site: str):
     HOST_SYNCS[site] += 1
     with span("sync." + site):
         return t.item()
+
+
+def add_contact_work(work: torch.Tensor) -> None:
+    """Add one narrow phase's ``[pairs, lanes, tris, active]`` (int64, on
+    its device) to :data:`CONTACT_WORK` while a profiler runs (checked at
+    every call, as :func:`span` checks); four additions on the device, no
+    host read."""
+    if _autograd_profiler._is_profiler_enabled:
+        for i, key in enumerate(("pairs", "lanes", "tris", "active")):
+            CONTACT_WORK[key] = CONTACT_WORK[key] + work[i]
 
 
 def to_device(values, device: torch.device, site: str) -> torch.Tensor:
