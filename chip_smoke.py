@@ -87,12 +87,15 @@ caught):
    10-step adaptive_chain (cg_iters 50, cg_tol 1e-3) and one rebin of the
    final state, every scan replayed against the plain version; the gates:
    no overflow, finite columns, particle mass unchanged, grid mass within
-   1e-4, mean v_y within 1% of free fall; then the chain best of 3
-   (ms/step, particle-steps/s, CG iterations per step);
+   1e-4, mean v_y within 1% of free fall, one operator kernel launch
+   (csrc/implicit_apply.cu) an application, CG iterations + 1 a step;
+   then the chain best of 3 (ms/step, particle-steps/s, CG iterations per
+   step);
 14. implicit card against CPU: phase 5's small scene for 20 implicit
    steps on CUDA and on the CPU (CG iterations per step equal within 1;
    x, v, F within 1e-6, 5e-4, 1e-5 plus the CPU's own spread over
-   summation order);
+   summation order; one operator kernel launch an application on the
+   card, none on the CPU);
 15. CG Poisson: 100 iterations at 32^3 on the card against the CPU
    (within 1e-5 of max |x|), then at 128^3 timed (best of 3): ms,
    iterations/s and GB/s under bench_poisson's byte model;
@@ -105,7 +108,8 @@ caught):
    band flags equal to the CPU port's on the same bin state, the mean v_y
    of the particles within dhat of the floor after one step above the
    contact-free step's, no particle below the floor, one mesh barrier
-   launch a step with contact and none without; then the chain best of 3
+   launch a step with contact and none without, one operator kernel
+   launch an application with and without; then the chain best of 3
    beside phase 13's;
 17. BASELINE config 5's contact rows at the benchmark's settings: the
    bench's heightfields of 2,048 and 100,352 triangles under the same
@@ -114,7 +118,8 @@ caught):
    (no live bin truncated or out of band, the flag equal to the CPU
    port's on the same bin state, and unset after one step), finite
    columns and mass; CG iterations and ms/step best of 3 of a 10-step
-   chain, with one mesh barrier launch a step; then the mesh barrier
+   chain, with one mesh barrier launch a step and one operator kernel
+   launch an application; then the mesh barrier
    kernel (csrc/mesh_barrier.cu) replayed against its plain version on
    the CPU on the row's first contact set (the work counts equal; forces
    and Hessians within (2 n + 16) 2^-24 of each entry's sum of term
@@ -122,13 +127,23 @@ caught):
    version on the card's widest gaps printed, and the kernel's device
    time and back-to-back time per call beside the plain version's on the
    card and the least time the benchmark's roofline counts;
+17b. the implicit operator kernel (csrc/implicit_apply.cu) at the cells'
+   shape: phase 13's block over the 2,048-triangle terrain, three steps
+   (one kernel launch an application, CG iterations + 1 a step), then on
+   the state they reach, without and with the barrier's Hessian, the
+   kernel and the plain version (float32, on the card) each within 1e-5
+   of the largest stiffness entry of the plain version in float64, the
+   kernel's device time and back-to-back time per call beside the plain
+   version's, the composition's it replaced (G2P, the jvp, P2G) and the
+   least time at the card's published peaks;
 18. contact card against CPU: tests/test_contact_implicit.py's 100-step
    scene (512 particles, dx 0.05, 96 bins, floor at 0.2, dhat 0.02, kappa
    2e4, max_tris 4, use_ccd, dt 2e-3) for 20 steps, then one
    contact_precond step, on CUDA and on the CPU (CG iterations equal
    within 1; x, v, F within phase 14's tolerances plus the CPU's own
    spread over summation order; no particle below floor - dhat; one mesh
-   barrier launch a step on the card, none on the CPU);
+   barrier launch a step and one operator kernel launch an application on
+   the card, none on the CPU);
 19. BASELINE config 1 through ``zpc_tpu_torch.tpu_exec()`` at 1,048,576
    and 16,777,216 elements (``default_rng(0)``): reduce (f32 add, int32
    add, min, max), both scans (f32, int32), sort and radix_sort (full
@@ -324,6 +339,7 @@ from zpc_tpu_torch import _kernels, scenes  # noqa: E402
 from zpc_tpu_torch.containers import block_table  # noqa: E402
 from zpc_tpu_torch.containers import bvh as bvh_mod  # noqa: E402
 from zpc_tpu_torch.containers import bvs as bvs_mod  # noqa: E402
+from zpc_tpu_torch.ops import implicit_apply as apply_op  # noqa: E402
 from zpc_tpu_torch.ops import mesh_barrier as barrier_op  # noqa: E402
 from zpc_tpu_torch.ops import nse as nse_op  # noqa: E402
 from zpc_tpu_torch.ops import scan as scan_op  # noqa: E402
@@ -339,6 +355,7 @@ from zpc_tpu_torch.geometry.sparse_grid import (  # noqa: E402
 from zpc_tpu_torch.geometry.collider import (Collider,  # noqa: E402
                                              ColliderType)
 from zpc_tpu_torch.math import solvers  # noqa: E402
+from zpc_tpu_torch.math.vecmat import mm33  # noqa: E402
 from zpc_tpu_torch.models import cfl as fl_cfl  # noqa: E402
 from zpc_tpu_torch.models import constitutive  # noqa: E402
 from zpc_tpu_torch.models.constitutive import (  # noqa: E402
@@ -673,7 +690,8 @@ def build():
         op.build()
         return time.perf_counter() - t0
     # one nvcc per source, all started together
-    ops = {"scan": scan_op, "nse": nse_op, "mesh_barrier": barrier_op}
+    ops = {"scan": scan_op, "nse": nse_op, "mesh_barrier": barrier_op,
+           "implicit_apply": apply_op}
     with concurrent.futures.ThreadPoolExecutor(len(ops)) as pool:
         secs = dict(zip(ops, pool.map(timed, ops.values())))
     for name, sec in secs.items():
@@ -1575,7 +1593,7 @@ def implicit_path(dev, card):
         rebins[0] += 1
         return b2.rebin_adaptive(sim, s, cfg)
 
-    scan_op.LAUNCHES = nse_op.LAUNCHES = 0
+    scan_op.LAUNCHES = nse_op.LAUNCHES = apply_op.LAUNCHES = 0
     with recorded_scans() as calls:
         bst = b2.bin_state(sim, st, cfg)
         torch.cuda.synchronize()
@@ -1595,6 +1613,8 @@ def implicit_path(dev, card):
         torch.cuda.synchronize()
     launches = scan_op.LAUNCHES
     check(nse_op.LAUNCHES == 0, "the implicit path launched no NSE kernel")
+    apply_launches = _apply_launches(
+        [it0] + iters, "the implicit path's steps")
     print(f"  {IMP_CHAIN}-step chain: CG iterations per step {iters}, "
           f"{rebins[0]} rebins; scan launches {launches}: {launches_bin} in "
           f"bin_state, {launches_chain} in the chain, "
@@ -1632,7 +1652,19 @@ def implicit_path(dev, card):
           f"{N_IMP / ms / 1e3:.4f} M particle-steps/s (chains "
           f"{', '.join(f'{t:.4f}' for t in times)} ms/step; CG iterations "
           f"per step {iters[-IMP_CHAIN:]}; {card})", flush=True)
-    return launches, ms
+    return launches, apply_launches, ms
+
+
+def _apply_launches(iters, what):
+    """Checks one operator kernel launch an application, CG iterations + 1
+    a step (``iters``: the CG iterations of every implicit step since the
+    count was zeroed); returns the count."""
+    want = sum(iters) + len(iters)
+    check(apply_op.LAUNCHES == want,
+          f"{what}: {apply_op.LAUNCHES} operator kernel launches in "
+          f"{len(iters)} steps of {sum(iters)} CG iterations (CG iterations "
+          f"+ 1 a step)")
+    return apply_op.LAUNCHES
 
 
 def _implicit_small(dev, reverse=False):
@@ -1662,9 +1694,13 @@ def _implicit_small(dev, reverse=False):
 
 def implicit_card_vs_cpu(dev):
     phase("14 implicit card against CPU, same port")
+    apply_op.LAUNCHES = 0
     g, gb, gi = _implicit_small(dev)
+    launches = _apply_launches(gi, "the card's steps")
     c, cb, ci = _implicit_small(torch.device("cpu"))
     c_rev, _, ri = _implicit_small(torch.device("cpu"), reverse=True)
+    _apply_launches(gi, "the CPU's plain version launched none: the card's "
+                        "steps")
     print(f"  CG iterations per step: card {gi}, CPU {ci}, CPU reversed "
           f"{ri}", flush=True)
     for k, (a, b) in enumerate(zip(gi, ci)):
@@ -1681,6 +1717,7 @@ def implicit_card_vs_cpu(dev):
         check(err <= TOL_IMP[k] + spread,
               f"{k} max abs diff {err:.3g} <= {TOL_IMP[k]} + the CPU's own "
               f"spread over summation order {spread:.3g}")
+    return launches
 
 
 def poisson(dev, card):
@@ -1797,6 +1834,7 @@ def contact_path(dev, card, free_ms):
         return b2.rebin_adaptive(sim, s, cfg)
 
     scan_op.LAUNCHES = nse_op.LAUNCHES = barrier_op.LAUNCHES = 0
+    apply_op.LAUNCHES = 0
     with recorded_scans() as calls:
         bst = b2.bin_state(sim, st, cfg)
         torch.cuda.synchronize()
@@ -1816,6 +1854,7 @@ def contact_path(dev, card, free_ms):
     check(nse_op.LAUNCHES == 0, "the contact path launched no NSE kernel "
                                 "(its tree is the complete one)")
     _barrier_launches(1 + len(iters), "the contact path's steps")
+    _apply_launches([it0] + iters, "the contact path's steps")
     print(f"  one step: {it0} CG iterations; {IMP_CHAIN}-step chain: CG "
           f"iterations per step {iters}, {rebins[0]} rebins; scan launches "
           f"{launches}: {launches_bin} in bin_state, {launches_chain} in "
@@ -1847,9 +1886,9 @@ def contact_path(dev, card, free_ms):
 
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    free, _ = ib2.implicit_step_binned2(sim, bst, dt, cfg, cg_iters=CG_ITERS,
-                                        cg_tol=CG_TOL, rebin=False,
-                                        with_stats=True)
+    free, it_free = ib2.implicit_step_binned2(
+        sim, bst, dt, cfg, cg_iters=CG_ITERS, cg_tol=CG_TOL, rebin=False,
+        with_stats=True)
     peak_free = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
     _barrier_launches(1 + len(iters), "the contact-free step launched none: "
                                       "the contact path's steps")
@@ -1872,6 +1911,9 @@ def contact_path(dev, card, free_ms):
           "timed chains: no overflow")
     barrier = _barrier_launches(1 + len(iters), "the contact path's steps "
                                                 "with the timed chains")
+    applies = _apply_launches([it0, it_free] + iters, "the contact path's "
+                              "steps, the contact-free step and the timed "
+                              "chains")
     ms = min(times)
     print(f"  {IMP_CHAIN}-step chain best of 3: {ms:.4f} ms/step = "
           f"{N_IMP / ms / 1e3:.4f} M particle-steps/s (chains "
@@ -1879,7 +1921,7 @@ def contact_path(dev, card, free_ms):
           f"per step {iters[-IMP_CHAIN:]}); phase 13 without contact "
           f"{free_ms:.4f} ms/step: contact costs {ms - free_ms:.4f} ms a "
           f"step ({card})", flush=True)
-    return launches, barrier
+    return launches, barrier, applies
 
 
 def _barrier_launches(steps, what):
@@ -1980,7 +2022,7 @@ def _barrier_bound(work, lanes, card):
 
 def config5_rows(dev, card):
     phase("17 config 5's contact rows at the benchmark's settings")
-    launches = {}
+    launches, applies = {}, {}
     for res in TERRAIN_RES:
         tri = scenes.terrain_mesh(res, dev)
         sim, st, dt, cfg, mc = scenes.contact_block(N_IMP, tri, dev)
@@ -1997,7 +2039,7 @@ def config5_rows(dev, card):
               f"{counts[2]} truncated, {counts[3]} out of band, at most "
               f"{counts[4]} candidates")
         iters = []
-        barrier_op.LAUNCHES = 0
+        barrier_op.LAUNCHES = apply_op.LAUNCHES = 0
 
         def step(s):
             out, it = ib2.implicit_step_binned2(
@@ -2017,6 +2059,8 @@ def config5_rows(dev, card):
               f"overflow")
         launches[res] = _barrier_launches(
             len(iters), f"{tri.shape[0]} triangles, one step and the chains")
+        applies[res] = _apply_launches(
+            iters, f"{tri.shape[0]} triangles, one step and the chains")
         ms = min(times)
         print(f"  config 5 + LBVH contact, {tri.shape[0]} triangles: "
               f"{ms:.4f} ms/step best of 3 = {N_IMP / ms / 1e3:.4f} M "
@@ -2025,7 +2069,132 @@ def config5_rows(dev, card):
               f"iterations per step {iters[-IMP_CHAIN:]}; {card})",
               flush=True)
         kern = _barrier_replay(mc, bst, cfg, card)
-    return launches, kern
+    return launches, applies, kern
+
+
+def _apply_bound(sys, card):
+    """The least time of one application at the card's published peaks,
+    from csrc/implicit_apply.cu's count (its note, "Bound"): a live lane's
+    position, F, volume, the step's U, s and V, per-lane Lame fields and
+    Hc; every lane's alive flag; each bin's 12 ints; u and gm read and the
+    output written once a node; 2,070 flops a live lane, 18 more with
+    Hc."""
+    from portbench.harness.peaks import peaks_for
+    peaks = peaks_for(card)
+    L = sys.x.shape[0]
+    live = int(sys.ctx.alive.sum())
+    hc = sys.Hc is not None
+    lane = 4 * (3 + 9 + 1 + 9 + 3 + 9 + (9 if hc else 0))
+    lane += 4 * ((sys.mu.numel() > 1) + (sys.lam.numel() > 1))
+    nodes = sys.gm.numel()
+    nbytes = live * lane + L + (L // b2.K) * 4 * 12 + nodes * 4 * (3 + 1 + 3)
+    flops = live * (2_070 + (18 if hc else 0))
+    t_b = nbytes / peaks["hbm_bytes_per_s"]
+    t_f = flops / peaks["fp32_flop_per_s"]
+    return {"bound_ms": 1e3 * max(t_b, t_f),
+            "bound_by": "bytes" if t_b >= t_f else "flops",
+            "bound_bytes": nbytes}
+
+
+def implicit_apply_path(dev, card):
+    phase("17b the implicit operator kernel at the cells' shape")
+    for kernel, regs, smem, spill in _ptxas_lines(
+            _kernels.ptxas_report("implicit_apply")):
+        check(spill == 0, f"{kernel}: {regs} registers, {smem} B shared "
+                          f"memory, no spill (ptxas -v)")
+    res = TERRAIN_RES[0]
+    tri = scenes.terrain_mesh(res, dev)
+    sim, st, dt, cfg, mc = scenes.contact_block(N_IMP, tri, dev)
+    mc = dataclasses.replace(mc, max_tris=TERRAIN_CONTACT[res][0],
+                             tile=TERRAIN_CONTACT[res][1])
+    bst = b2.bin_state(sim, st, cfg)
+    iters = []
+    apply_op.LAUNCHES = 0
+
+    def step(s):
+        out, it = ib2.implicit_step_binned2(
+            sim, s, dt, cfg, cg_iters=CG_ITERS, cg_tol=CG_TOL, contact=mc,
+            rebin=False, with_stats=True)
+        iters.append(it)
+        return out
+    # three steps over the terrain, so F is off I and the barrier is on
+    for _ in range(3):
+        bst = step(bst)
+    torch.cuda.synchronize()
+    launches = _apply_launches(iters, "three steps over the terrain")
+    ctx = b2._make_ctx(bst, cfg)
+    lanes = b2._lanes(bst, ctx)
+    xb, _, Fb, _, m, vol = lanes
+    L, B = xb.shape[0], cfg.bins_capacity
+    model = b2._lane_model(sim.model, bst.pid)
+    gm = b2._ctx_p2g_affine(ctx, m[:, None],
+                            torch.zeros((L, 1, 3), device=dev))[..., 0]
+    alive = ctx.alive.view(B, b2.K)
+    cset = mc.broad_phase(ctx, alive)
+    _, Hc, _ = barrier_op.mesh_barrier(xb.view(B, b2.K, 3), alive, cset.hits,
+                                       mc.tri, mc.dhat, mc.kappa)
+    Hc = Hc.view(L, 3, 3)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    u = 0.1 * torch.randn(tuple(gm.shape) + (3,), generator=gen, device=dev)
+    u = torch.where((gm > 0)[..., None], u, 0.0)
+    print(f"  {int(ctx.alive.sum()):,} live lanes in {B} bins, "
+          f"{int((gm > 0).sum()):,} massive nodes of {gm.numel():,}; "
+          f"{int((Hc.abs().sum((1, 2)) > 0).sum()):,} lanes with a barrier "
+          f"Hessian ({tri.shape[0]} triangles); CG iterations per step "
+          f"{iters}", flush=True)
+    out = {}
+    for label, H in (("no contact", None), ("contact", Hc)):
+        sys = apply_op.corotated_system(ctx, bst.bin_block, bst.nbr8, xb,
+                                        Fb, vol, model.mu, model.lam, H,
+                                        gm, dt)
+        n0 = apply_op.LAUNCHES
+        got = apply_op.implicit_apply(sys, u)
+        torch.cuda.synchronize()
+        check(apply_op.LAUNCHES == n0 + 1, f"{label}: one kernel launch a "
+                                           f"call")
+        plain = apply_op.implicit_apply_reference(sys, u)
+        want = apply_op.implicit_apply_reference(apply_op.as_float64(sys),
+                                                 u.double())
+        scale = (want - sys.gm.double()[..., None] * u.double()).abs().max()
+        gaps = {k: ((v.double() - want).abs().max() / scale).item()
+                for k, v in (("kernel", got), ("plain", plain))}
+        check(gaps["kernel"] <= 1e-5 and gaps["plain"] <= 1e-5,
+              f"{label}: kernel and plain version (float32, on the card) "
+              f"within 1e-5 of the largest stiffness entry of the plain "
+              f"version in float64 (kernel {gaps['kernel']:.3e}, plain "
+              f"{gaps['plain']:.3e})")
+        # the composition the kernel replaced: G2P, the jvp, P2G
+        FbT = Fb.transpose(-1, -2)
+        kscale = (dt * ctx.dinv * vol)[:, None, None]
+        dP_dF = model.linearize(Fb)
+
+        def composition():
+            s0, dC = b2._ctx_g2p(ctx, u)
+            dP = dP_dF(dt * mm33(dC, Fb))
+            Qk = None if H is None else (dt * dt) * torch.bmm(
+                H, s0[..., None])[..., 0]
+            return gm[..., None] * u + b2._ctx_p2g_affine(
+                ctx, Qk, kscale * mm33(dP, FbT))
+        gaps["composition"] = ((composition().double() - want).abs().max()
+                               / scale).item()
+        # two device activities a call: gm u and the kernel
+        kern = split(f"operator kernel, {label}",
+                     lambda: apply_op.implicit_apply(sys, u), card,
+                     kernel=False)
+        kern["plain_ms"] = cuda_ms(
+            lambda: apply_op.implicit_apply_reference(sys, u), 5, warmup=1)
+        kern["composition_ms"] = cuda_ms(composition, 5, warmup=1)
+        kern.update(_apply_bound(sys, card))
+        kern["gaps"] = gaps
+        print(f"  {label}: plain fused version {kern['plain_ms']:.4f} ms, "
+              f"the composition it replaced {kern['composition_ms']:.4f} ms "
+              f"a call (gap {gaps['composition']:.3e}); least time "
+              f"{kern['bound_ms']:.6f} ms ({kern['bound_by']}-bound, "
+              f"{kern['bound_bytes'] / 1e6:.1f} MB): "
+              f"{100 * kern['bound_ms'] / kern['device_ms']:.2f}% of the "
+              f"kernel's device time ({card})", flush=True)
+        out[label] = kern
+    return launches, out
 
 
 def _contact_small(dev, reverse=False):
@@ -2072,13 +2241,16 @@ def _contact_small(dev, reverse=False):
 
 def contact_card_vs_cpu(dev):
     phase("18 contact card against CPU, same port")
-    barrier_op.LAUNCHES = 0
+    barrier_op.LAUNCHES = apply_op.LAUNCHES = 0
     g, gp, g_it, gy = _contact_small(dev)
     launches = _barrier_launches(len(g_it), "the card's steps")
+    applies = _apply_launches(g_it, "the card's steps")
     c, cp, c_it, cy = _contact_small(torch.device("cpu"))
     r, rp, r_it, _ = _contact_small(torch.device("cpu"), reverse=True)
     _barrier_launches(len(g_it), "the CPU's plain version launched none: "
                                  "the card's steps")
+    _apply_launches(g_it, "the CPU's plain version launched none: the "
+                          "card's steps")
     print(f"  CG iterations per step ({CSMALL_STEPS} steps, then the "
           f"contact_precond step): card {g_it}, CPU {c_it}, CPU reversed "
           f"{r_it}", flush=True)
@@ -2096,7 +2268,7 @@ def contact_card_vs_cpu(dev):
             check(err <= TOL_IMP[k] + spread,
                   f"{what}: {k} max abs diff {err:.3g} <= {TOL_IMP[k]} + the "
                   f"CPU's own spread over summation order {spread:.3g}")
-    return launches
+    return launches, applies
 
 
 def _same(got, ref, what):
@@ -4363,13 +4535,14 @@ def main():
     fluid_launches, fluid = dam_break_path(dev, card)
     fluid_card_vs_cpu(dev)
     mat_launches = materials_path(dev, card)
-    imp_launches, imp_ms = implicit_path(dev, card)
-    implicit_card_vs_cpu(dev)
+    imp_launches, apply_13, imp_ms = implicit_path(dev, card)
+    apply_14 = implicit_card_vs_cpu(dev)
     poisson(dev, card)
     _barrier_launches(0, "phases 3-15 (no mesh contact)")
-    contact_launches, barrier_16 = contact_path(dev, card, imp_ms)
-    barrier_17, barrier_t = config5_rows(dev, card)
-    barrier_18 = contact_card_vs_cpu(dev)
+    contact_launches, barrier_16, apply_16 = contact_path(dev, card, imp_ms)
+    barrier_17, apply_17, barrier_t = config5_rows(dev, card)
+    apply_17b, apply_t = implicit_apply_path(dev, card)
+    barrier_18, apply_18 = contact_card_vs_cpu(dev)
     config1_launches, _ = config1(dev, card)
     container_launches = containers_path(dev, card)
     with tempfile.TemporaryDirectory() as tmp:
@@ -4437,6 +4610,20 @@ def main():
     print(f"  mesh barrier launches per path (one a narrow phase): "
           f"{barrier_paths}; total {sum(barrier_paths.values())}",
           flush=True)
+    check(apply_op.LAUNCHES == apply_18,
+          f"phases 19-38 launched no operator kernel (no 3-D implicit "
+          f"step): {apply_op.LAUNCHES} launches since phase 18's "
+          f"{apply_18}")
+    apply_paths = {"implicit block (phase 13)": apply_13,
+                   "implicit card against CPU (phase 14)": apply_14,
+                   "mesh contact (phase 16)": apply_16,
+                   **{f"config 5, terrain res {r} (phase 17)": n
+                      for r, n in apply_17.items()},
+                   "three steps over the terrain (phase 17b)": apply_17b,
+                   "contact card against CPU (phase 18)": apply_18}
+    print(f"  operator kernel launches per path (one an application, CG "
+          f"iterations + 1 a step; none on the CPU): {apply_paths}; total "
+          f"{sum(apply_paths.values())}", flush=True)
     scan_t, lib_t = times[327_680], times["library"]
     # ms: back-to-back time per call; device_ms: the profiler's device time
     # per call.  bound: each input read once and each output written once,
@@ -4472,8 +4659,20 @@ def main():
         "kernels_per_call": barrier_t["kernels_per_call"],
         "plain_ms": barrier_t["plain_ms"],
         "bound_ms": barrier_t["bound_ms"],
-        "bound_by": barrier_t["bound_by"], "library_ms": None}]}),
-        flush=True)
+        "bound_by": barrier_t["bound_by"], "library_ms": None}, {
+        # the launches of the steps of phases 13-18; the times at the
+        # cells' shape (phase 17b), without and with the barrier's Hessian
+        "name": "implicit_apply", "route": "cuda",
+        "source": "zpc_tpu_torch/csrc/implicit_apply.cu",
+        "replaces": "zpc_tpu/sim/implicit_binned2.py (XLA operator)",
+        "launches": sum(apply_paths.values()), "library_ms": None,
+        "shapes": {label: {
+            "gap": t["gaps"]["kernel"], "ms": t["ms"],
+            "device_ms": t["device_ms"],
+            "kernels_per_call": t["kernels_per_call"],
+            "plain_ms": t["plain_ms"], "composition_ms": t["composition_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"]}
+            for label, t in apply_t.items()}}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -155,14 +155,18 @@ def test_cuda_timing_and_memory(tmp_path):
 
 # -- spans and host syncs in the stepping code ------------------------------
 
-def _small_scene(contact: bool = False):
-    """A 1,024-particle elastic block at dx = 1/32 in 64 bins, optionally
-    over a two-triangle floor 5 mm below it (with the CCD clamp)."""
+def _small_scene(contact: bool = False, model=None):
+    """A 1,024-particle elastic block at dx = 1/32 in 64 bins (scenes'
+    FixedCorotated, or ``model``), optionally over a two-triangle floor
+    5 mm below it (with the CCD clamp)."""
+    import dataclasses as dc
     from zpc_tpu_torch import scenes
     from zpc_tpu_torch.sim import contact_implicit as ci
     from zpc_tpu_torch.sim import mpm_binned2 as b2
     cpu = torch.device("cpu")
     sim, st, dt = scenes.mpm_block(1024, 1.0 / 32, cpu, block_capacity=256)
+    if model is not None:
+        sim = dc.replace(sim, model=model)
     cfg = b2.BinnedConfig2(bins_capacity=64, block_capacity=256)
     mc = None
     if contact:
@@ -194,7 +198,7 @@ def _run_both_paths(scene, n_explicit: int = 2):
 _NESTED = {
     "zpc.ctx": None, "zpc.stress": None, "zpc.p2g": None,
     "zpc.grid_update": None, "zpc.advance": None,
-    "zpc.g2p": ("zpc.advance", "zpc.cg.apply"), "zpc.rebin.migrate": None,
+    "zpc.g2p": "zpc.advance", "zpc.rebin.migrate": None,
     "zpc.rebin.full": None, "zpc.rebin.sort": "zpc.rebin.full",
     "zpc.rebin.groups": "zpc.rebin.full",
     "zpc.rebin.finish": "zpc.rebin.full",
@@ -225,30 +229,52 @@ def _zpc_ancestors(path):
     return out
 
 
+def _spans_in_place(tmp_path, scene, nested):
+    """Runs ``_run_both_paths(scene)`` under the profiler and checks that
+    the trace holds each span of ``nested`` and no other, each inside one
+    of its holders, the transfers inside the right-hand side and no stage
+    inside another; returns the spans with their holders."""
+    with P.trace(str(tmp_path)):
+        _run_both_paths(scene)
+    spans = _zpc_ancestors(tmp_path / "trace.json")
+    assert {n for n, _ in spans} == set(nested)
+    for name, holders in spans:
+        want = nested[name]
+        if want is not None:
+            assert holders & set((want,) if isinstance(want, str) else
+                                 want), (name, holders)
+    assert "zpc.p2g" in {n for n, h in spans if "zpc.implicit.rhs" in h}
+    stages = {"zpc.ctx", "zpc.stress", "zpc.cg", "zpc.advance",
+              "zpc.rebin.full", "zpc.rebin.migrate", "zpc.implicit.rhs"}
+    assert not any(h & stages for n, h in spans if n in stages)
+    return spans
+
+
 def test_spans_nest_in_the_trace(tmp_path):
     """Every span of the explicit chain, the rebins, the implicit step and
     the contact is in the Chrome trace, and each sits where it belongs:
     G2P and the CCD inside the advance, the rebin's phases inside the
     full rebin, the operator applications and the polls inside the CG
-    loop, the transfers inside the right-hand side and the
-    applications, the table copies inside their stages."""
-    scene = _small_scene(contact=True)
-    with P.trace(str(tmp_path)):
-        _run_both_paths(scene)
-    spans = _zpc_ancestors(tmp_path / "trace.json")
-    assert {n for n, _ in spans} == set(_NESTED)
-    for name, holders in spans:
-        want = _NESTED[name]
-        if want is not None:
-            assert holders & set((want,) if isinstance(want, str) else
-                                 want), (name, holders)
+    loop, the transfers inside the right-hand side and none inside the
+    applications (a FixedCorotated operator is one fused application),
+    the table copies inside their stages."""
+    spans = _spans_in_place(tmp_path, _small_scene(contact=True), _NESTED)
+    assert "zpc.cg.apply" in {n for n, _ in spans}
+    assert not {n for n, h in spans if "zpc.cg.apply" in h}
+
+
+def test_spans_nest_on_the_jvp_route(tmp_path):
+    """A NeoHookean block's operator takes G2P, the jvp and P2G: its
+    applications hold the G2P and P2G spans, G2P sits in an application
+    or in the advance, and every other span where it sits for the fused
+    operator."""
+    from zpc_tpu_torch.models.constitutive import NeoHookean
+    model = NeoHookean.from_young_poisson(5e4, 0.3,
+                                          device=torch.device("cpu"))
+    nested = {**_NESTED, "zpc.g2p": ("zpc.advance", "zpc.cg.apply")}
+    spans = _spans_in_place(tmp_path, _small_scene(True, model), nested)
     in_cg = {n for n, h in spans if "zpc.cg.apply" in h}
     assert {"zpc.g2p", "zpc.p2g"} <= in_cg
-    assert "zpc.p2g" in {n for n, h in spans if "zpc.implicit.rhs" in h}
-    # the stages are never inside one another
-    stages = {"zpc.ctx", "zpc.stress", "zpc.cg", "zpc.advance",
-              "zpc.rebin.full", "zpc.rebin.migrate", "zpc.implicit.rhs"}
-    assert not any(h & stages for n, h in spans if n in stages)
 
 
 def test_no_span_without_a_profiler(monkeypatch):

@@ -62,6 +62,8 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 import zpc_tpu_torch  # noqa: E402
 from portbench.harness.trace import reduce_profile  # noqa: E402
 from zpc_tpu_torch import scenes  # noqa: E402
+from zpc_tpu_torch.math.svd import svd3x3  # noqa: E402
+from zpc_tpu_torch.ops import implicit_apply  # noqa: E402
 from zpc_tpu_torch.sim import fluid_binned2 as fb  # noqa: E402
 from zpc_tpu_torch.sim import implicit_binned2 as ib2  # noqa: E402
 from zpc_tpu_torch.sim import mpm_binned2 as b2  # noqa: E402
@@ -197,7 +199,7 @@ def _events_ms(fn, reps=5):
 
 
 def _linearize_or_jvp(sim, bst, dt):
-    """The force differential at the binned state's F, three ways."""
+    """The force differential at the binned state's F, four ways."""
     L = bst.cols.shape[0]
     F = bst.cols[:, 6:15].reshape(L, 3, 3)
     gen = torch.Generator(device=F.device).manual_seed(0)
@@ -212,15 +214,24 @@ def _linearize_or_jvp(sim, bst, dt):
     step_lin = sim.model.linearize(F)
     once_ms = _events_ms(lambda: sim.model.linearize(F))
     apply_ms = _events_ms(lambda: step_lin(dF))
+    factors = svd3x3(F)
+    closed_ms = _events_ms(lambda: implicit_apply.corotated_dP(
+        F, factors, dF, sim.model.mu, sim.model.lam))
     want = sim.model.dP_dF_action(F, dF)
     err = max((lin(dF) - want).abs().max().item(),
-              (step_lin(dF) - want).abs().max().item())
+              (step_lin(dF) - want).abs().max().item(),
+              (implicit_apply.corotated_dP(F, factors, dF, sim.model.mu,
+                                           sim.model.lam) - want).abs().max(
+                  ).item())
     print(f"force differential over {L} lanes: torch.func.linearize trace "
           f"{trace_s:.4f} s, then {lin_ms:.4f} ms an application; "
           f"torch.func.jvp (dP_dF_action) {jvp_ms:.4f} ms an application; "
           f"the model's linearize (the SVD once) {once_ms:.4f} ms, then "
-          f"{apply_ms:.4f} ms an application, which the step uses (mean "
-          f"of 5; the three differ by {err:.3g})", flush=True)
+          f"{apply_ms:.4f} ms an application, which the step uses for a "
+          f"model other than FixedCorotated; FixedCorotated's closed form "
+          f"(ops/implicit_apply.corotated_dP, in plain PyTorch; the step "
+          f"runs it inside the operator kernel) {closed_ms:.4f} ms (mean of "
+          f"5; the four differ by {err:.3g})", flush=True)
 
 
 def main():

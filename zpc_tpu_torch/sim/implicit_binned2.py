@@ -20,7 +20,11 @@ the SVD models, but it records the whole primal graph anew for every new
 F, 28 s of host time at 1M particles on the H100 host (PERF.md).  The
 model's ``linearize`` takes the SVD of F once per step and each operator
 application runs ``torch.func.jvp`` of the stress around those factors,
-so only the stress's cheap primal ops are repeated.
+so only the stress's cheap primal ops are repeated.  A FixedCorotated
+model skips the jvp: its operator is one fused application
+(:mod:`zpc_tpu_torch.ops.implicit_apply`: G2P, the stress differential in
+closed form around the SVD taken once a step, and P2G), one CUDA kernel on
+a card.
 
 Mesh contact (``contact``, a :class:`~zpc_tpu_torch.sim.contact_implicit.
 MeshContact`) adds the IPC barrier: after the context, one broad phase
@@ -47,6 +51,8 @@ import torch
 from ..geometry.collider import resolve_boundaries
 from ..math.solvers import cg
 from ..math.vecmat import mm33
+from ..models.constitutive import FixedCorotated
+from ..ops import implicit_apply
 from ..utils.profile import span
 from .mpm import MPMSim, MPMState
 from .mpm_binned2 import (K, BinnedConfig2, BinState, _advance, _ctx_g2p,
@@ -114,19 +120,30 @@ def _implicit_bin_step(sim: MPMSim, st: BinState, dt, cfg: BinnedConfig2,
     def project(u):
         return u * free_f
 
-    # (M + dt^2 K [+ dt^2 K_c]) u over [nb, 64, 3]
-    FbT = Fb.transpose(-1, -2)
-    kscale = (dt * dinv * vol)[:, None, None]
-    with span("implicit.linearize"):
-        dP_dF = model.linearize(Fb)
+    # (M + dt^2 K [+ dt^2 K_c]) u over [nb, 64, 3]: FixedCorotated's in
+    # one fused application (the CUDA kernel on a card), every other model
+    # through G2P, the jvp of its stress and P2G
+    if type(model) is FixedCorotated:
+        with span("implicit.linearize"):
+            system = implicit_apply.corotated_system(
+                ctx, st.bin_block, st.nbr8, xb, Fb, vol, model.mu, model.lam,
+                Hc, gm, dt)
 
-    def A_op(u):
-        s0, dC = _ctx_g2p(ctx, u)
-        dP = dP_dF(dt * mm33(dC, Fb))
-        Qk = None if Hc is None else (dt * dt) * torch.bmm(
-            Hc, s0[..., None])[..., 0]
-        return gm[..., None] * u + _ctx_p2g_affine(
-            ctx, Qk, kscale * mm33(dP, FbT))
+        def A_op(u):
+            return implicit_apply.implicit_apply(system, u)
+    else:
+        FbT = Fb.transpose(-1, -2)
+        kscale = (dt * dinv * vol)[:, None, None]
+        with span("implicit.linearize"):
+            dP_dF = model.linearize(Fb)
+
+        def A_op(u):
+            s0, dC = _ctx_g2p(ctx, u)
+            dP = dP_dF(dt * mm33(dC, Fb))
+            Qk = None if Hc is None else (dt * dt) * torch.bmm(
+                Hc, s0[..., None])[..., 0]
+            return gm[..., None] * u + _ctx_p2g_affine(
+                ctx, Qk, kscale * mm33(dP, FbT))
 
     if pdiag is None:
         def precondition(r):
